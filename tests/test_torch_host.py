@@ -1,0 +1,187 @@
+"""The port's copies of the host modules against their originals.
+
+The port keeps its own copy of every jax-free module it needs (rans,
+interleaved, heuristic, recoil, bitio, metadata, conventional, container)
+and re-implements the host encoder.  These tests feed the same seeded
+inputs to both packages and require equal arrays and equal bytes, and
+parse the frozen golden containers with the port.
+
+Each test runs in a child pytest process (``test_torch_isolation.in_child``),
+and the port is imported inside the tests, so the test worker itself never
+loads torch beside jaxlib.
+"""
+
+import glob
+import os
+
+import numpy as np
+import pytest
+from test_torch_isolation import in_child
+
+from repro.core import container as j_container
+from repro.core import metadata as j_metadata
+from repro.core import rans as j_rans
+from repro.core import recoil as j_recoil
+from repro.core.conventional import encode_conventional as j_encode_conv
+from repro.core.vectorized import encode_interleaved_fast as j_encode
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+GOLDEN_NAMES = sorted(os.path.splitext(os.path.basename(p))[0]
+                      for p in glob.glob(os.path.join(GOLDEN, "*.bin")))
+
+
+def _symbols(seed, n, alphabet=256, lam=40.0):
+    rng = np.random.default_rng(seed)
+    return np.minimum(rng.exponential(lam, size=n).astype(np.int64),
+                      alphabet - 1)
+
+
+def _models(syms, alphabet, n_bits, ways):
+    from repro_torch.core import rans
+    jm = j_rans.StaticModel.from_symbols(
+        syms, alphabet, j_rans.RansParams(n_bits=n_bits, ways=ways))
+    tm = rans.StaticModel.from_symbols(
+        syms, alphabet, rans.RansParams(n_bits=n_bits, ways=ways))
+    return jm, tm
+
+
+def _port_enc(enc):
+    """The reference's EncodedStream fields as the port's EncodedStream."""
+    from repro_torch.core import rans
+    from repro_torch.core.interleaved import EncodedStream
+    p = enc.params
+    return EncodedStream(stream=enc.stream, final_states=enc.final_states,
+                         n_symbols=enc.n_symbols,
+                         params=rans.RansParams(n_bits=p.n_bits,
+                                                ways=p.ways),
+                         k_of_word=enc.k_of_word, y_of_word=enc.y_of_word)
+
+
+@pytest.mark.parametrize("seed,n_bits,alphabet", [
+    (0, 8, 256), (1, 11, 256), (2, 12, 100), (3, 14, 4096), (4, 16, 4096)])
+@in_child
+def test_tables_equal(seed, n_bits, alphabet):
+    from repro_torch.core import rans
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 1000, size=alphabet) * (rng.random(alphabet) > .3)
+    counts[0] += 1
+    f_j = j_rans.quantize_pdf(counts, n_bits)
+    f_t = rans.quantize_pdf(counts, n_bits)
+    np.testing.assert_array_equal(f_t, f_j)
+    assert f_t.dtype == f_j.dtype
+    F = rans.build_cdf(f_t)
+    np.testing.assert_array_equal(F, j_rans.build_cdf(f_j))
+    np.testing.assert_array_equal(rans.build_slot_lut(f_t, F),
+                                  j_rans.build_slot_lut(f_j, F))
+    if alphabet <= 256 and n_bits <= 12:
+        np.testing.assert_array_equal(rans.pack_decode_lut(f_t, F),
+                                      j_rans.pack_decode_lut(f_j, F))
+
+
+@pytest.mark.parametrize("n,ways,n_bits", [
+    (1, 32, 11), (31, 32, 11), (999, 32, 11), (4_096, 8, 8),
+    (17_331, 64, 16), (20_000, 128, 12), (5_555, 16, 14)])
+@in_child
+def test_host_encoder_equals_reference(n, ways, n_bits):
+    from repro_torch.core.interleaved import decode_interleaved
+    from repro_torch.core.vectorized import encode_interleaved_fast
+    syms = _symbols(n, n)
+    jm, tm = _models(np.concatenate([syms, np.arange(256)]), 256, n_bits,
+                     ways)
+    a = j_encode(syms, jm)
+    b = encode_interleaved_fast(syms, tm)
+    for field in ("stream", "final_states", "k_of_word", "y_of_word"):
+        np.testing.assert_array_equal(getattr(b, field), getattr(a, field))
+        assert getattr(b, field).dtype == getattr(a, field).dtype, field
+    assert b.n_symbols == a.n_symbols
+    np.testing.assert_array_equal(decode_interleaved(b, tm), syms)
+
+
+@pytest.mark.parametrize("n,ways,n_splits", [
+    (6_000, 32, 16), (4_097, 64, 9), (12_345, 16, 40)])
+@in_child
+def test_plans_equal(n, ways, n_splits):
+    from repro_torch.core import convert, metadata, recoil
+    syms = _symbols(n + 1, n)
+    jm, tm = _models(syms, 256, 11, ways)
+    enc = j_encode(syms, jm)
+    jp = j_recoil.plan_splits(enc, n_splits)
+    tp = recoil.plan_splits(_port_enc(enc), n_splits)
+    for threads in (None, 1, 2, 3, 7, n_splits - 1, n_splits + 5):
+        j_thin = jp if threads is None else j_recoil.combine_plan(jp, threads)
+        t_thin = tp if threads is None else recoil.combine_plan(tp, threads)
+        ja, ta = convert.plan_arrays(j_thin), convert.plan_arrays(t_thin)
+        for key in ja:
+            np.testing.assert_array_equal(ta[key], ja[key])
+        assert metadata.serialize_plan(t_thin) == \
+            j_metadata.serialize_plan(j_thin)
+    np.testing.assert_array_equal(
+        recoil.decode_recoil(tp, enc.stream, enc.final_states, tm), syms)
+
+
+@in_child
+def test_containers_equal():
+    from repro_torch.core import container, metadata, recoil
+    from repro_torch.core.conventional import encode_conventional
+    syms = _symbols(9, 7_000)
+    jm, tm = _models(syms, 256, 11, 32)
+    enc = j_encode(syms, jm)
+    t_enc = _port_enc(enc)
+    jp = j_recoil.plan_splits(enc, 12)
+    tp = recoil.plan_splits(t_enc, 12)
+    assert container.pack_recoil(t_enc, tm, tp) == \
+        j_container.pack_recoil(enc, jm, jp)
+    assert container.pack_single(t_enc, tm) == j_container.pack_single(enc, jm)
+    assert container.pack_recoil_chunked(t_enc, tm, tp, 3) == \
+        j_container.pack_recoil_chunked(enc, jm, jp, 3)
+    short = syms[:2_000]
+    assert container.pack_conventional(encode_conventional(short, tm, 3),
+                                       tm) == \
+        j_container.pack_conventional(j_encode_conv(short, jm, 3), jm)
+    # The reference's wire bytes parse in the port to the same content.
+    parsed = container.parse(j_container.pack_recoil(enc, jm, jp),
+                             tm.params)
+    assert parsed.kind == container.KIND_RECOIL
+    np.testing.assert_array_equal(parsed.stream, enc.stream)
+    np.testing.assert_array_equal(parsed.final_states, enc.final_states)
+    np.testing.assert_array_equal(parsed.model.f, jm.f)
+    assert metadata.serialize_plan(parsed.plan) == \
+        j_metadata.serialize_plan(jp)
+
+
+@pytest.mark.parametrize("name", GOLDEN_NAMES)
+@in_child
+def test_golden_vectors_parse_to_frozen_truth(name):
+    from repro_torch.core import container, metadata, rans, recoil
+    from repro_torch.core.vectorized import encode_interleaved_fast
+    with open(os.path.join(GOLDEN, f"{name}.bin"), "rb") as f:
+        buf = f.read()
+    npz = np.load(os.path.join(GOLDEN, f"{name}.npz"))
+    params = rans.RansParams(n_bits=int(npz["n_bits"]), ways=int(npz["ways"]))
+    parsed = container.parse(buf, params)
+    ref = j_container.parse(buf, j_rans.RansParams(n_bits=params.n_bits,
+                                                   ways=params.ways))
+    assert parsed.kind == ref.kind
+    syms = npz["symbols"]
+    assert parsed.n_symbols == len(syms)
+    np.testing.assert_array_equal(parsed.stream, ref.stream)
+    np.testing.assert_array_equal(parsed.final_states, ref.final_states)
+    np.testing.assert_array_equal(parsed.model.f, ref.model.f)
+    assert metadata.serialize_plan(parsed.plan) == \
+        j_metadata.serialize_plan(ref.plan)
+    out = recoil.decode_recoil(parsed.plan, parsed.stream,
+                               parsed.final_states, parsed.model)
+    np.testing.assert_array_equal(out, syms)
+    # Re-encoding the frozen symbols with the port reproduces the bytes.
+    enc = encode_interleaved_fast(syms, parsed.model)
+    np.testing.assert_array_equal(enc.k_of_word, npz["k_of_word"])
+    plan = recoil.plan_splits(enc, int(npz["n_splits"]))
+    if parsed.kind == container.KIND_RECOIL_CHUNKED:
+        for key in ("sym_end", "words_end", "split_end"):
+            np.testing.assert_array_equal(getattr(parsed.chunks, key),
+                                          npz[key])
+        again = container.pack_recoil_chunked(enc, parsed.model, plan,
+                                              int(npz["n_chunks"]))
+    else:
+        again = container.pack_recoil(enc, parsed.model, plan)
+    assert again == buf
