@@ -10,7 +10,11 @@ package — in five phases, each failing loudly with a non-zero exit:
                register and shared-memory report;
   3. kernels — each walk kernel against its plain torch version on the card
                over W {8..128}, n_bits {11, 16}, packed and three-table
-               slot tables, u16 and u32 permutations: outputs must be equal;
+               slot tables, on int16 streams and permutations: many short
+               splits, and a few long ones that cross hundreds of ring
+               refills, read down to word 0 and run on streams whose length
+               is not a multiple of 8, with inert padding rows under
+               ``covered``.  Outputs must be equal;
   4. main    — the content-delivery path at the paper's size (§5.1 Table 4:
                10 MB assets; Table 3 codec n = 11, W = 32; a 2176-thread
                split plan).  Two assets are encoded on the host; one is
@@ -18,11 +22,19 @@ package — in five phases, each failing loudly with a non-zero exit:
                through the wire container with none (pointer layout); the
                DecodeService on the card decodes each at 16, 128 and 2176
                threads and a fused group of 8 mixed requests.  Every result
-               must equal the input symbols, both kernels must have launched
-               and the plain walk must have served nothing;
-  5. times   — each kernel at the main path's 2176-thread shapes: checked
-               against its plain version, then warm CUDA-event times of the
-               kernel and the plain version, the byte bound, decoded MB/s.
+               must equal the input symbols, both kernels must have launched,
+               the plain walk must have served nothing, every single-content
+               plan must be covered (no -1 fill) and the fused plan's
+               coverage must be what an independent check of its windows
+               says;
+  5. times   — each kernel at the main path's 16-, 128- and 2176-thread
+               plans: the executor's call, the one the main path makes,
+               checked against the input symbols and against its plain
+               version on the same arguments (output and final pointers),
+               then its CUDA-event device time, per-step time and the bound;
+               a separate line gives a model of the bytes the rings copy
+               (from their geometry, not a counter); at 2176 threads, the
+               plain version's time.
 
 Prints, before the last line, the kernel table as one JSON object and the
 card's ``nvidia-smi`` line; the last line is the JSON run summary.  Exits
@@ -46,6 +58,11 @@ MB = 1_000_000
 N_BITS, WAYS, PLAN_THREADS = 11, 32, 2176
 THREADS = (16, 128, 2176)
 LATENCY_REPS = 20
+TIME_REPS = 20
+# A device-side sleep ahead of each timed run, long enough that the host has
+# queued every launch before the first starts: the events then time the
+# device alone, not the host's enqueue gaps.
+SLEEP_CYCLES = 40_000_000
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 # 32-bit arithmetic outside the tensor cores: the data sheet's 67 TFLOP/s
 # float32 rate, the highest such rate the card has.  A decode step is about
@@ -58,6 +75,9 @@ REPLACES = {
     "walk_pointer": "src/repro/kernels/rans_decode/rans_decode.py:93",
     "walk_symbol": "src/repro/kernels/rans_decode/rans_decode.py:153",
 }
+# Ring geometry of csrc/rans_walk.cu at W = 32 (words of one chunk, chunks
+# of one ring), for the model of the bytes the rings copy.
+POINTER_CHUNK, SYMBOL_ROWS, RING_CHUNKS = 32, 8, 4
 
 
 def log(*args) -> None:
@@ -69,19 +89,24 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` warm calls, by CUDA
-    events around the whole run."""
+def cuda_ms(fn, reps: int) -> tuple[float, float]:
+    """Mean device time of ``fn()`` over ``reps`` warm calls, by CUDA events
+    around the whole run, queued behind a device sleep so that the events
+    see the device's time and not the host's; and the host's mean time to
+    enqueue one call (ms)."""
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     t0.record()
+    t = time.perf_counter()
     for _ in range(reps):
         fn()
+    host = (time.perf_counter() - t) / reps * 1e3
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return t0.elapsed_time(t1) / reps, host
 
 
 # ---------------------------------------------------------------------------
@@ -133,47 +158,93 @@ def _compare(name, got, want, errs) -> None:
         fail(f"{name} disagrees with its plain version (max |err| {err})")
 
 
+def _int16(words, dev, pad=0) -> torch.Tensor:
+    """16-bit words as int16 bit patterns on the card, ``pad`` zero words
+    appended (a valid walk never reads them)."""
+    a = np.concatenate([np.asarray(words, np.uint16), np.zeros(pad, np.uint16)])
+    return torch.as_tensor(a.view(np.int16), device=dev)
+
+
 def phase_kernels(dev, errs) -> None:
     from repro_torch.core.engine import (SPLIT_FIELDS, SYMBOL_SPLIT_FIELDS,
-                                         pad_split_arrays)
+                                         kept_windows_tile, pad_split_arrays)
     from repro_torch.core.vectorized import (_walk_batch_impl,
                                              _walk_batch_symbol_impl,
                                              words_by_symbol_host)
     from repro_torch.kernels.rans_decode.ops import _luts, packed_lut_ok
     from repro_torch.kernels.rans_decode.rans_decode import (
         walk_decode_pointer, walk_decode_symbol)
-    cases = 0
+    cases, odd_lengths, refills = 0, 0, 0
     for ways in (8, 16, 32, 64, 128):
         for n_bits in (11, 16):
-            syms, model, enc, batch = _content(ways * 100 + n_bits, 40_000,
-                                               ways, n_bits, 61)
-            n = len(syms)
-            arrs = pad_split_arrays(batch, batch.k.shape[0], dev)
-            st = dict(n_bits=n_bits, ways=ways, n_steps=batch.n_steps,
-                      n_symbols=n)
-            words = torch.as_tensor(enc.stream.astype(np.int32), device=dev)
-            wbs = words_by_symbol_host(enc.stream, enc.k_of_word, n)
-            wbs = np.concatenate([wbs, np.zeros((-n) % ways, np.uint32)])
-            for packed in sorted({False, packed_lut_ok(model)}):
-                luts = _luts(model, packed, dev)
-                a = (words, *luts, *(arrs[f] for f in SPLIT_FIELDS))
-                out, qf = walk_decode_pointer(*a, **st)
-                ref, ref_qf = _walk_batch_impl(*a, **st)
-                _compare("walk_pointer", out, ref, errs)
-                _compare("walk_pointer", qf, ref_qf, errs)
-                for perm, view in ((np.uint16, np.int16),
-                                   (np.uint32, np.int32)):
-                    by = torch.as_tensor(wbs.astype(perm).view(view),
-                                         device=dev)
+            # Many short splits, then three long ones.
+            for n, n_splits in ((40_000, 61), (60_000, 3)):
+                syms, model, enc, batch = _content(
+                    ways * 100 + n_bits + n_splits, n, ways, n_bits, n_splits)
+                S = batch.k.shape[0]
+                arrs = pad_split_arrays(batch, S + 5, dev)
+                st = dict(n_bits=n_bits, ways=ways, n_steps=batch.n_steps,
+                          n_symbols=n)
+                run = dict(covered=kept_windows_tile(batch, n))
+                if not run["covered"]:
+                    fail(f"a plan_splits plan is not covered (W={ways})")
+                wbs = words_by_symbol_host(enc.stream, enc.k_of_word, n)
+                by = _int16(wbs, dev, (-n) % ways + 3 * ways)
+                for packed in sorted({False, packed_lut_ok(model)}):
+                    luts = _luts(model, packed, dev)
+                    a = (_int16(enc.stream, dev), *luts,
+                         *(arrs[f] for f in SPLIT_FIELDS))
+                    ref, ref_qf = _walk_batch_impl(*a, **st)
+                    if int(ref_qf.min()) != -1:
+                        fail("no split read down to word 0")
+                    walked = (arrs["q0"] - ref_qf)[:S].max()
+                    refills = max(refills, int(walked) // max(ways, 32))
+                    for pad in (0, 1, 3):
+                        words = _int16(enc.stream, dev, pad)
+                        odd_lengths += words.numel() % 8 != 0
+                        out, qf = walk_decode_pointer(
+                            words, *a[1:], **st, **run)
+                        _compare("walk_pointer", out, ref, errs)
+                        _compare("walk_pointer", qf, ref_qf, errs)
                     a = (by, *luts, *(arrs[f] for f in SYMBOL_SPLIT_FIELDS))
+                    ref = _walk_batch_symbol_impl(*a, **st)
+                    _compare("walk_symbol", walk_decode_symbol(*a, **st, **run),
+                             ref, errs)
                     _compare("walk_symbol", walk_decode_symbol(*a, **st),
-                             _walk_batch_symbol_impl(*a, **st), errs)
-                cases += 1
-                if not (out.cpu().numpy() == syms).all():
-                    fail(f"kernel decode != symbols (W={ways}, n={n_bits})")
+                             ref, errs)
+                    try:
+                        walk_decode_symbol(by.to(torch.int32), *a[1:], **st)
+                    except ValueError:
+                        pass
+                    else:
+                        fail("the symbol kernel took an int32 permutation")
+                    cases += 1
+                    if not (ref.cpu().numpy() == syms).all():
+                        fail(f"plain decode != symbols (W={ways}, n={n_bits})")
     torch.cuda.synchronize()
-    log(f"[kernels] {cases} table/width cases x (pointer + u16 + u32 symbol) "
-        f"equal their plain versions; max |err| {errs}")
+    if odd_lengths == 0:
+        fail("no stream length was off a multiple of 8")
+    log(f"[kernels] {cases} content/table/width cases x (pointer on 3 stream "
+        f"lengths + symbol with and without padding rows) equal their plain "
+        f"versions; {odd_lengths} stream lengths off a multiple of 8, every "
+        f"bottom split read word 0, up to {refills} ring chunks a split; "
+        f"max |err| {errs}")
+
+
+def _windows_tile(plan) -> bool:
+    """Independent check of ``plan.covered``: the rows' kept windows, empty
+    ones aside, laid end to end cover [0, n_symbols)."""
+    split = dict(zip(("g_hi", "start", "stop", "keep_lo", "keep_hi",
+                      "out_base"), plan.args[8:]))
+    lo = (split["out_base"] + split["keep_lo"]).cpu().numpy()
+    hi = (split["out_base"] + split["keep_hi"]).cpu().numpy()
+    spans = sorted((a, b) for a, b in zip(lo.tolist(), hi.tolist()) if b > a)
+    at = 0
+    for a, b in spans:
+        if a != at:
+            return False
+        at = b
+    return at == plan.n_symbols
 
 
 def _assets():
@@ -234,13 +305,28 @@ def phase_main(dev, rd):
                 "walk_symbol": rd.walk_decode_symbol.launches}
     plain = (rd.walk_decode_pointer.plain_calls
              + rd.walk_decode_symbol.plain_calls)
+    fills = rd.walk_decode_pointer.fills + rd.walk_decode_symbol.fills
     stats = svc.stats.snapshot()
     log(f"[main] layouts {layouts}; launches {launches}; plain walks {plain}; "
-        f"service {stats}")
+        f"output fills {fills}; service {stats}")
     if min(launches.values()) == 0 or plain != 0:
         fail("the main path did not run on both kernels alone")
     if stats["fused_dispatches"] != 1 or stats["pointer_plans"] < 4:
         fail("the mixed group did not fuse into one pointer-layout dispatch")
+    # Coverage: every single-content plan skips the fill; the fused plan's
+    # flag is what an independent check of its windows says.
+    singles = [svc.prepare_request(n, th) for th in THREADS for n in assets]
+    if not all(p.covered and _windows_tile(p) for p in singles):
+        fail("a single-content plan is not covered")
+    fused = [p for p, _, _ in svc._fused_plans.values()]
+    if len(fused) != 1 or fused[0].covered != _windows_tile(fused[0]):
+        fail("the fused plan's coverage differs from its windows")
+    if fills != sum(not p.covered for p in fused):
+        fail(f"{fills} output fills on the main path, expected none for "
+             "covered plans")
+    log(f"[main] {len(singles)} single-content plans covered, fused plan "
+        f"covered={fused[0].covered} ({fused[0].args[4].shape[0]} rows): "
+        "no output fill on the main path")
 
     # Warm end-to-end request latency (host clock around decode + sync).
     for name in assets:
@@ -274,7 +360,8 @@ def _bound(plan, n_words, n_symbols) -> dict:
         the card's 32-bit non-tensor peak.
 
     Also returns the deepest real split's step count (the kernels stop
-    there; the plan's bucketed count is an upper bound).
+    there; the plan's bucketed count is an upper bound) and the table and
+    metadata bytes, which the bytes-moved count reuses.
     """
     luts = plan.args[1:4]
     splits = plan.args[4:]
@@ -282,56 +369,111 @@ def _bound(plan, n_words, n_symbols) -> dict:
     real = start >= 0
     real_rows = int(real.reshape(real.shape[0], -1).any(1).sum())
     row_bytes = sum(t[0].numel() * t.element_size() for t in splits)
-    nbytes = (n_words * 2
-              + sum(t.numel() * t.element_size() for t in luts
+    lut_bytes = sum(t.numel() * t.element_size() for t in luts
                     if t is not None)
-              + real_rows * row_bytes
-              + n_symbols * 4
-              + (real_rows * 4 if plan.layout == "pointer" else 0))
+    meta = real_rows * row_bytes + (real_rows * 4
+                                    if plan.layout == "pointer" else 0)
+    nbytes = n_words * 2 + lut_bytes + meta + n_symbols * 4
     walked = int(((start - stop + 1) * real).sum())
     steps = int(((g_hi - stop // plan.statics["ways"] + 1) * real).max())
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = walked * OPS_PER_SYMBOL / INT32_OPS_PER_S * 1e3
     return dict(bytes=nbytes, bytes_ms=bytes_ms, ops_ms=ops_ms, steps=steps,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                bound_ms=max(bytes_ms, ops_ms), lut_bytes=lut_bytes,
+                meta=meta, bound_by="bytes" if bytes_ms >= ops_ms
+                else "operations")
+
+
+def _ring_words(plan, qf) -> int:
+    """A model of the words the kernel copies into its rings (W = 32), from
+    the ring geometry and not from a counter: pointer, the chunks from q0's
+    down to four below qf's; symbol, the 8-row chunks from row0's down to
+    the split's last row's."""
+    words = plan.args[0]
+    W = plan.statics["ways"]
+    clip = lambda t, hi: t.clamp(0, hi)                       # noqa: E731
+    if plan.layout == "pointer":
+        n_stream = words.numel()
+        q0 = plan.args[7].to(torch.int64)
+        top = clip(q0, n_stream - 1) // POINTER_CHUNK
+        low = (clip(qf.to(torch.int64), n_stream - 1) // POINTER_CHUNK
+               - (RING_CHUNKS - 1)).clamp(min=0)
+        return int(((top - low + 1) * POINTER_CHUNK).sum())
+    g_hi, start, stop, base = (plan.args[i].to(torch.int64)
+                               for i in (8, 9, 10, 7))
+    last = words.numel() // W - 1
+    steps = torch.minimum(g_hi - stop // W + 1,
+                          torch.tensor(plan.statics["n_steps"]))
+    row0 = g_hi + base // W
+    top = clip(row0, last) // SYMBOL_ROWS
+    low = clip(row0 - steps + 1, last) // SYMBOL_ROWS
+    return int(((top - low + 1) * SYMBOL_ROWS * W * (start >= 0)).sum())
 
 
 def phase_times(svc, assets, enc, launches, errs, smi):
     from repro_torch.core.vectorized import (_walk_batch_impl,
                                              _walk_batch_symbol_impl)
     rows = []
-    for kname, name in (("walk_symbol", "expo"), ("walk_pointer", "zipf")):
-        plan = svc.prepare_request(name, PLAN_THREADS)
-        if {"walk_symbol": "symbol",
-                "walk_pointer": "pointer"}[kname] != plan.layout:
-            fail(f"{name} planned on {plan.layout}")
-        kern = svc.session.executor.lower(plan)
+    for kname, name in (("walk_pointer", "zipf"), ("walk_symbol", "expo")):
+        want = torch.as_tensor(assets[name].astype(np.int32), device="cuda")
+        by_threads = {}
+        for th in THREADS:
+            plan = svc.prepare_request(name, th)
+            if {"walk_symbol": "symbol",
+                    "walk_pointer": "pointer"}[kname] != plan.layout:
+                fail(f"{name} planned on {plan.layout}")
+            ex = svc.session.executor
+            kern = ex.lower(plan)
+            run = dict(n_symbols=plan.n_symbols, covered=plan.covered)
+            plain_fn = (_walk_batch_symbol_impl if plan.layout == "symbol"
+                        else _walk_batch_impl)
+
+            # The call the main path makes, held against the plain walk on
+            # the same arguments, then timed.
+            got = kern(*plan.args, **run)
+            ref = plain_fn(*plan.args, **plan.statics,
+                           n_symbols=plan.n_symbols)
+            qf = None
+            if plan.layout == "pointer":
+                _compare(kname, got[1], ref[1], errs)
+                (got, qf), ref = got, ref[0]
+            _compare(kname, got, ref, errs)
+            if not torch.equal(got, want):
+                fail(f"{kname} at {th} threads != input symbols")
+            ms, host_ms = cuda_ms(lambda: ex.run(kern, plan), TIME_REPS)
+            b = _bound(plan, enc[name].n_words, len(assets[name]))
+            by_threads[th] = dict(ms=ms, bound=b, plan=plan)
+            log(f"[times] {kname} on {name} at {th} threads: {b['steps']} "
+                f"steps; {ms:.4f} ms ({ms / b['steps'] * 1e3:.3f} us/step), "
+                f"host enqueue {host_ms * 1e3:.1f} us a call; bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {b['bytes']} B, "
+                f"operations {b['ops_ms']:.4f} ms); "
+                f"{len(assets[name]) / ms / 1e3:.1f} MB/s decoded; card: {smi}")
+            ring = _ring_words(plan, qf) * 2
+            blocks = -(-plan.args[4].shape[0] // (128 // plan.statics["ways"]))
+            moved = ring + blocks * b["lut_bytes"] + b["meta"] + \
+                plan.n_symbols * 4
+            log(f"[times] {kname} at {th} threads, model of bytes moved (ring "
+                f"geometry, not a counter): {moved} B = rings {ring} B "
+                f"({ring / (enc[name].n_words * 2):.3f} x the stream's) + "
+                f"tables {blocks} x {b['lut_bytes']} B + metadata + output")
+        plan = by_threads[PLAN_THREADS]["plan"]
         plain_fn = (_walk_batch_symbol_impl if plan.layout == "symbol"
                     else _walk_batch_impl)
-        got = kern(*plan.args)
-        ref = plain_fn(*plan.args, **plan.statics)
-        if plan.layout == "pointer":
-            _compare(kname, got[1], ref[1], errs)
-            got, ref = got[0], ref[0]
-        _compare(kname, got, ref, errs)
-        ms = cuda_ms(lambda: kern(*plan.args), 20)
-        plain_ms = cuda_ms(lambda: plain_fn(*plan.args, **plan.statics), 2)
-        b = _bound(plan, enc[name].n_words, len(assets[name]))
-        n_splits = plan.args[4].shape[0]
-        log(f"[times] {kname} on {name}: {PLAN_THREADS} threads, {b['steps']} "
-            f"steps (bucket {n_splits} rows x {plan.statics['n_steps']} "
-            f"steps), kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
-            f"{b['bytes_ms']:.4f} ms = {b['bytes']} B, operations "
-            f"{b['ops_ms']:.4f} ms), "
-            f"{len(assets[name]) / ms / 1e3:.1f} MB/s decoded; card: {smi}")
+        plain_ms, _ = cuda_ms(lambda: plain_fn(*plan.args, **plan.statics,
+                                               n_symbols=plan.n_symbols), 2)
+        log(f"[times] {kname} plain version at {PLAN_THREADS} threads: "
+            f"{plain_ms:.3f} ms; card: {smi}")
+        top = by_threads[PLAN_THREADS]
         rows.append({"name": kname, "route": "cuda", "source": KERNEL_SOURCE,
                      "replaces": REPLACES[kname],
                      "launches": launches[kname],
-                     "max_abs_err": errs[kname], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-                     "bound_by": b["bound_by"], "library_ms": None})
+                     "max_abs_err": errs[kname], "ms": top["ms"],
+                     "plain_ms": plain_ms, "bound_ms": top["bound"]["bound_ms"],
+                     "bound_by": top["bound"]["bound_by"], "library_ms": None,
+                     "bound_bytes": top["bound"]["bytes"],
+                     "ms_by_threads": {str(th): v["ms"]
+                                       for th, v in by_threads.items()}})
     return rows
 
 

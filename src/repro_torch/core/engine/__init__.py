@@ -11,8 +11,8 @@
 
 from .plan import (BucketPolicy, DecodePlan, DeviceStream, LEGACY_POLICY, LegacyBucketPolicy, SPLIT_FIELDS,
                    SYMBOL_SPLIT_FIELDS, chunk_bounds, concat_walk_batches,
-                   derive_symbol_layout, pad_split_arrays, pow2_bucket,
-                   with_symbol_layout, work_bucket)
+                   derive_symbol_layout, kept_windows_tile, pad_split_arrays,
+                   pow2_bucket, with_symbol_layout, work_bucket)
 from .executors import (CudaExecutor, Executor, TorchExecutor,
                         make_executor)
 from .session import DecoderSession, EngineStats
@@ -22,6 +22,7 @@ __all__ = [
     "DeviceStream", "EngineStats", "Executor", "LEGACY_POLICY",
     "LegacyBucketPolicy", "SPLIT_FIELDS", "SYMBOL_SPLIT_FIELDS",
     "TorchExecutor", "chunk_bounds", "concat_walk_batches",
-    "derive_symbol_layout", "make_executor", "pad_split_arrays",
+    "derive_symbol_layout", "kept_windows_tile", "make_executor",
+    "pad_split_arrays",
     "pow2_bucket", "with_symbol_layout", "work_bucket",
 ]

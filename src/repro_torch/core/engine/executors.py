@@ -5,7 +5,7 @@ An :class:`Executor` owns one backend's request preparation and lowering:
     upload_stream(words)     -> DeviceStream   (resident on the device)
     plan(batch, ds, n)       -> DecodePlan     (host prep; pure, cacheable)
     lower(plan)              -> launcher       (resolved once per plan key)
-    run(fn, plan)            -> device syms    (bucketed; caller slices)
+    run(fn, plan)            -> device syms    (int32[plan.n_symbols])
 
 :class:`~repro_torch.core.engine.session.DecoderSession` composes an
 executor with the plan cache and stats; it never branches on the backend.
@@ -17,7 +17,11 @@ Backends:
                 walks (the CPU path and the oracle for the kernels).
 
 Both read the whole resident stream (or permutation) and the (S, W) split
-arrays directly, so they share one ``plan``.
+arrays directly, so they share one ``plan``.  The split arrays hold the
+request's real rows; the key carries their bucket, so its counts match the
+reference's.  A launcher is bound to the key's bucketed step count; ``run``
+passes what differs between plans of one key -- the real output length and
+whether the kept windows tile the output -- at run time.
 """
 
 from __future__ import annotations
@@ -34,8 +38,8 @@ from ...kernels.rans_decode.rans_decode import (load_library,
                                                 walk_decode_pointer,
                                                 walk_decode_symbol)
 from .plan import (BucketPolicy, DecodePlan, DeviceStream, LEGACY_POLICY,
-                   SPLIT_FIELDS, SYMBOL_SPLIT_FIELDS, pad_split_arrays,
-                   perm_dtype_name, pow2_bucket)
+                   SPLIT_FIELDS, SYMBOL_SPLIT_FIELDS, kept_windows_tile,
+                   pad_split_arrays, pow2_bucket)
 
 
 class Executor:
@@ -51,8 +55,9 @@ class Executor:
     layout joins the plan key, so the two walks never share launchers.
 
     ``policy`` is the bucket ladder: every compute-shaped dimension (split
-    rows, walk steps, output slots) is padded through ``policy.work``/
-    ``policy.mem`` and ``policy.tag`` joins every plan key.  Stream
+    rows, walk steps, output slots) is bucketed through ``policy.work``/
+    ``policy.mem`` into the plan key, with ``policy.tag``; only the walk's
+    step count is launched at its bucket.  Stream
     residency buckets (``upload_stream``) stay on the fixed pow2 ladder.
     """
 
@@ -95,13 +100,17 @@ class Executor:
         return "symbol"
 
     def upload_stream(self, stream: np.ndarray) -> DeviceStream:
-        """Upload the words once, zero-padded to their pow2 bucket."""
+        """Upload the 16-bit words once, as int16 bit patterns, zero-padded
+        to their pow2 bucket."""
         host = np.ascontiguousarray(np.asarray(stream))
+        if host.size and (int(host.min()) < 0 or int(host.max()) >= 1 << 16):
+            raise ValueError("stream words must lie in [0, 2^16)")
         bucket = pow2_bucket(len(host), 1024)
-        padded = np.zeros(bucket, np.int32)
-        padded[:len(host)] = host.astype(np.int32)
-        return DeviceStream(words=torch.as_tensor(padded, device=self.device),
-                            host=host, n_words=len(host), bucket=bucket)
+        padded = np.zeros(bucket, np.uint16)
+        padded[:len(host)] = host
+        return DeviceStream(
+            words=torch.as_tensor(padded.view(np.int16), device=self.device),
+            host=host, n_words=len(host), bucket=bucket)
 
     def plan(self, batch: WalkBatch, ds: DeviceStream,
              n_symbols: int) -> DecodePlan:
@@ -112,25 +121,24 @@ class Executor:
         s_b = self.policy.work(batch.k.shape[0])
         steps_b = self.policy.work(batch.n_steps)
         out_b = self.policy.mem(n_symbols)
-        arrs = pad_split_arrays(batch, s_b, self.device)
-        statics = dict(n_bits=p.n_bits, ways=W, n_steps=steps_b,
-                       n_symbols=out_b)
+        arrs = pad_split_arrays(batch, batch.k.shape[0], self.device)
+        statics = dict(n_bits=p.n_bits, ways=W, n_steps=steps_b)
         if layout == "symbol":
             _check_sym_alignment(batch, ds, W)
-            # The permutation dtype (u16 for small assets, u32 otherwise)
-            # joins the key: same sym_bucket, different dtype must not alias.
+            # The key keeps the reference's word-width field: 16-bit words
+            # on both layouts here.
             key = (self.impl, layout, self.policy.tag, self.packed_lut,
-                   p.n_bits, W, s_b, steps_b, ds.sym_bucket,
-                   perm_dtype_name(ds.by_symbol), out_b)
+                   p.n_bits, W, s_b, steps_b, ds.sym_bucket, "u16", out_b)
             args = (ds.by_symbol, *self.luts,
                     *(arrs[f] for f in SYMBOL_SPLIT_FIELDS))
         else:
             key = (self.impl, layout, self.policy.tag, self.packed_lut,
-                   p.n_bits, W, s_b, steps_b, ds.bucket, "u32", out_b)
+                   p.n_bits, W, s_b, steps_b, ds.bucket, "u16", out_b)
             args = (ds.words, *self.luts, *(arrs[f] for f in SPLIT_FIELDS))
         return DecodePlan(key=key, args=args, statics=statics,
                           n_symbols=n_symbols, out_bucket=out_b,
-                          layout=layout)
+                          layout=layout,
+                          covered=kept_windows_tile(batch, n_symbols))
 
     def lower(self, plan: DecodePlan):
         """The launcher for this plan's key: the layout's wrapper bound to
@@ -140,7 +148,7 @@ class Executor:
         return functools.partial(fn, **plan.statics)
 
     def run(self, fn, plan: DecodePlan) -> torch.Tensor:
-        res = fn(*plan.args)
+        res = fn(*plan.args, n_symbols=plan.n_symbols, covered=plan.covered)
         return res if plan.layout == "symbol" else res[0]
 
 

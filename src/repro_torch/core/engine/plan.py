@@ -10,19 +10,22 @@ A :class:`DecodePlan` captures everything the launch needs:
   * ``key``      — the plan-cache key.  Two plans with equal keys run the
                    same launcher at the same bucketed shapes (all bucketed
                    dims equal, same backend/LUT/layout config);
-  * ``args``     — the positional argument tuple, already padded to the
-                   bucketed shapes and placed on the session's device;
-  * ``statics``  — the launch's scalar arguments (``n_steps``, ``n_symbols``
-                   etc. at their *bucketed* values);
-  * ``n_symbols``— the real output length; the bucket tail is sliced off
-                   after the call.
+  * ``args``     — the positional argument tuple (the resident stream at
+                   its bucket, the request's real split rows), placed on
+                   the session's device;
+  * ``statics``  — the launch's scalar arguments (``n_steps`` at its
+                   *bucketed* value etc.), bound once per key;
+  * ``n_symbols``, ``covered`` — the real output length and whether the
+                   kept windows tile it; the executor passes them at run
+                   time, since plans of one key share one launcher.
 
 Bucketing policy: memory-dominant dims pad to powers of two
 (:func:`pow2_bucket`), compute-dominant dims to powers of two and their
-1.5x midpoints (:func:`work_bucket`).  Padding is inert by construction —
-extra splits carry ``start = -1`` (never active), extra steps walk groups
-below every ``stop``, extra stream words are never indexed, extra output
-slots are sliced off.
+1.5x midpoints (:func:`work_bucket`).  The buckets join the key; the
+launch pads only the walk's steps and the resident stream, and that padding
+is inert by construction — extra steps walk groups below every ``stop``,
+extra stream words are never indexed.  Split rows and the output keep
+their real sizes.
 
 :func:`concat_walk_batches` is the microbatch fusion primitive: N requests'
 WalkBatches become one batch whose per-request rows write disjoint output
@@ -111,29 +114,25 @@ LEGACY_POLICY = LegacyBucketPolicy()
 class DeviceStream:
     """A stream registered with a session, resident on its device.
 
-    ``words`` holds the 16-bit stream words as int32, zero-padded to the
-    pow2 ``bucket``; ``host`` keeps the original words (``None`` for fused
-    streams built by the microbatcher).
+    ``words`` holds the 16-bit stream words as int16 bit patterns,
+    zero-padded to the pow2 ``bucket``; ``host`` keeps the original words
+    (``None`` for fused streams built by the microbatcher).
 
     ``by_symbol`` is the symbol-indexed permutation of the same words:
     entry ``i`` is the word emitted at flat symbol index ``i`` (0 where
-    symbol ``i`` emitted nothing), padded to ``sym_bucket``, as int16 (u16
-    bit patterns, streams under 2^16 words) or int32.  It exists only for
-    content whose emission log was available at registration; ``None`` keeps
-    the handle on the pointer walk.  The wire format never carries it.
+    symbol ``i`` emitted nothing), padded to ``sym_bucket``, as int16 bit
+    patterns: every entry is a 16-bit stream word, whatever the stream's
+    length.  It exists only for content whose emission log was available at
+    registration; ``None`` keeps the handle on the pointer walk.  The wire
+    format never carries it.
     """
 
-    words: torch.Tensor           # int32[bucket], zero-padded tail
+    words: torch.Tensor           # int16[bucket], zero-padded tail
     host: np.ndarray | None       # uint16/uint32[n_words] — original words
     n_words: int
     bucket: int
-    by_symbol: torch.Tensor | None = None   # int16/int32[sym_bucket]
+    by_symbol: torch.Tensor | None = None   # int16[sym_bucket]
     sym_bucket: int = 0
-
-
-def perm_dtype_name(t: torch.Tensor) -> str:
-    """The unsigned width a permutation tensor's bit patterns stand for."""
-    return {torch.int16: "u16", torch.int32: "u32"}[t.dtype]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +150,7 @@ class DecodePlan:
     n_symbols: int
     out_bucket: int
     layout: str = "pointer"   # "pointer" or "symbol"; joins the key
+    covered: bool = False     # kept windows tile [0, n_symbols)
 
 
 SPLIT_FIELDS = ("k", "y", "x0", "q0", "g_hi", "start", "stop",
@@ -184,6 +184,29 @@ def pad_split_arrays(batch: WalkBatch, s_bucket: int,
             a = np.concatenate([a, ext])
         out[name] = torch.as_tensor(a, device=device)
     return out
+
+
+def kept_windows_tile(batch: WalkBatch, n_symbols: int) -> bool:
+    """Whether the walk writes every output position of ``[0, n_symbols)``
+    exactly once: the kept windows ``[out_base + keep_lo, out_base +
+    keep_hi)`` of the batch's rows, empty ones aside, tile the range, and
+    every kept symbol is one its split decodes (``stop <= keep_lo``,
+    ``keep_hi <= start + 1`` and ``keep_hi <= min_j k_j``).  Host work,
+    once per plan."""
+    lo = batch.out_base.astype(np.int64) + batch.keep_lo
+    hi = batch.out_base.astype(np.int64) + batch.keep_hi
+    some = hi > lo
+    if not some.any():
+        return n_symbols == 0
+    decoded = ((batch.keep_lo >= batch.stop)
+               & (batch.keep_hi <= batch.start.astype(np.int64) + 1)
+               & (batch.keep_hi <= batch.k.min(axis=1)))
+    if not decoded[some].all():
+        return False
+    order = np.argsort(lo[some], kind="stable")
+    lo, hi = lo[some][order], hi[some][order]
+    return bool(lo[0] == 0 and hi[-1] == n_symbols
+                and np.array_equal(lo[1:], hi[:-1]))
 
 
 def concat_walk_batches(batches: Sequence[WalkBatch],
@@ -253,7 +276,8 @@ def concat_walk_batches(batches: Sequence[WalkBatch],
 def derive_symbol_layout(words: torch.Tensor, k_of_word: torch.Tensor, *,
                          sym_bucket: int) -> torch.Tensor:
     """``words_by_symbol`` from a compacted stream + emission log, on the
-    tensors' device; returns int32[sym_bucket].
+    tensors' device; returns the unsigned words as int32[sym_bucket]
+    (``words`` may hold them as int16 or int32 bit patterns).
 
     ``k_of_word`` is sorted ascending (emission order is ascending flat
     symbol index) with an int32-max padding tail, so the inverse of the
@@ -267,7 +291,7 @@ def derive_symbol_layout(words: torch.Tensor, k_of_word: torch.Tensor, *,
                      device=k_of_word.device)
     q = torch.searchsorted(k_of_word, i, side="left").clamp(0, cap - 1)
     hit = k_of_word[q] == i
-    return torch.where(hit, words[q].to(torch.int32),
+    return torch.where(hit, words[q].to(torch.int32) & 0xFFFF,
                        torch.zeros((), dtype=torch.int32, device=words.device))
 
 
@@ -295,12 +319,9 @@ def with_symbol_layout(ds: DeviceStream, k_of_word: np.ndarray,
     by = derive_symbol_layout(ds.words,
                               torch.as_tensor(kpad, device=ds.words.device),
                               sym_bucket=sym_bucket)
-    # u16 permutation variant: every entry is a 16-bit stream word, so the
-    # narrow store is exact whenever it exists at all.  Kept u32 for big
-    # streams only so the dtype is a pure function of n_words (plan keys
-    # include it — no aliasing).  int16 holds the u16 bit patterns.
-    if ds.n_words < (1 << 16):
-        by = torch.where(by >= 1 << 15, by - (1 << 16), by).to(torch.int16)
+    # Every entry is a 16-bit stream word, so the u16 store is exact at any
+    # stream length; int16 holds the u16 bit patterns.
+    by = torch.where(by >= 1 << 15, by - (1 << 16), by).to(torch.int16)
     return dataclasses.replace(ds, by_symbol=by, sym_bucket=sym_bucket)
 
 

@@ -154,7 +154,7 @@ class DecoderSession:
                 self.stats.compiles += 1
             else:
                 self.stats.cache_hits += 1
-        return self.executor.run(fn, plan)[:plan.n_symbols]
+        return self.executor.run(fn, plan)
 
     def decode_batch(self, batch: WalkBatch, stream,
                      n_symbols: int) -> torch.Tensor:

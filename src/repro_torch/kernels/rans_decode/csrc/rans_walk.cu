@@ -12,8 +12,9 @@
 // (rows, steps, 128) tile of the TPU version never exists.
 //
 // Thread mapping.  One W-thread segment per split, blockDim = 128, so a
-// block walks 128 / W splits (W a power of two <= 128).  Thread j of a
-// segment is way j: at step t it handles symbol i = (g_hi - t) * W + j.
+// block walks 128 / W splits (W a power of two <= 128, a template constant).
+// Thread j of a segment is way j: at step t it handles symbol
+// i = (g_hi - t) * W + j.
 //
 //   reconstruct (i == k_j):  x = (y_j << 16) | word
 //   decode      (i <  k_j):  slot = x & (2^n - 1); s, f, F = lut[slot]
@@ -26,36 +27,79 @@
 // split's read count.  Within a warp both counts are a __ballot_sync and two
 // __popc under the segment mask (the paper's own CUDA design); a split that
 // spans 2 or 4 warps (W = 64, 128) adds the counts of its higher warps
-// through shared memory, one block barrier per step.  A word is loaded only
-// by a lane that reads one, and its index is clipped to the stream as the
-// reference clips it.
+// through shared memory, one block barrier per step.  The index is clipped
+// to the stream as the reference clips it.
 //
-// Symbol layout: lane j reads words_by_symbol[i + sym_base] directly (u16 or
-// u32 permutation, one template instance each) -- no pointer, no cross-lane
-// step, no barrier.
+// Symbol layout: lane j reads words_by_symbol[i + sym_base], row
+// (row0 - t) of the permutation viewed (rows, W) -- no pointer, no
+// cross-lane count.
+//
+// Word rings.  Every word a step reads comes from shared memory.  Each split
+// owns a ring of 4 chunks of 16-bit words, indexed by the word's global
+// position modulo the ring, and refills it from below with 16-byte
+// cp.async copies while it decodes from the chunks already resident:
+//   * pointer: a split's reads form one descending run, and a step reads
+//     only inside [q - W + 1, q], i.e. the chunk of q and the one below
+//     (a chunk is max(W, 32) words, so q leaves at most one chunk a step).
+//     Those two are waited for; the two below them are in flight.  When q
+//     leaves a chunk, its slot is refilled with the chunk four below.  The
+//     split's last chunks overshoot its last read by at most one ring
+//     (4 * 32 words at W = 32); those words belong to the split below.
+//   * symbol: the row a step reads is known before its decode, so the ring
+//     holds chunks of 8 rows (one 16-byte copy per lane): the chunk of the
+//     current row is waited for, the next two are in flight, and a fourth
+//     slot guards the chunk just left.  Loads stop at the split's own last
+//     row.
+// Refill decisions depend only on q (or the row), which every lane of a
+// split holds alike, so no lane diverges from its split; the waits and the
+// split's barriers run only on the steps that enter a new chunk.  A word
+// past the end of the stream is zero-filled by the copy and never read;
+// reads are clipped as the reference clips them.
 //
 // Slot tables: the packed single-int32 table (n <= 12, <= 16 KB) is staged
-// in shared memory; the three-table layout can reach 3 * 2^16 * 4 B =
-// 768 KiB at n = 16, beyond the 227 KB a block may have, so it is read
-// through the read-only data cache from device memory.
+// in shared memory with 16-byte cp.async copies; the three-table layout can
+// reach 3 * 2^16 * 4 B = 768 KiB at n = 16, beyond the 227 KB a block may
+// have, so it is read through the read-only data cache from device memory.
 //
 // What bounds it on the H100.  The walk does no matrix work and little
 // arithmetic per byte; the least time for the work is bytes: each stream
-// (or permutation) word read once, the split metadata read once and the
-// int32 output written once, over 3.35 TB/s.  A split's steps are a chain of
-// dependent loads (table, then word), so this simple design is bound by
-// that latency instead: it keeps every split of the request in flight at
-// once (one block per 128 / W splits) and lets each block stop at the
-// deepest step its own splits need, not the padded step count.  Persistent
-// blocks, TMA staging and a narrowed table are later work.
+// word (2 B) read once, the split metadata read once and the int32 output
+// written once, over 3.35 TB/s.  What holds it back is the chain of
+// dependent steps in each split.  The first design paid a device-memory
+// load per step (the word's address waited on the step's ballot); with the
+// rings a step's critical path is a shared-memory table read, the state
+// update, the ballot and a shared-memory word read, every lane runs the
+// same branch-free instructions, and the device-memory traffic runs ahead
+// of it as 16-bit words.  With few splits the chain's latency is the time;
+// with many (one warp each) instruction issue on each SM may add to it (not
+// traced).  The grid covers only the splits it is given and each block
+// stops at the deepest step its own splits need.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+
 namespace {
 
 constexpr int kBlock = 128;
+constexpr int kRingChunks = 4;
 constexpr uint32_t kLowerBound = 1u << 16;
+
+// Pointer layout: a chunk must hold a whole step's reads (W words).
+template <int W>
+struct PointerRing {
+  static constexpr int kChunk = W < 32 ? 32 : W;       // words
+  static constexpr int kWords = kRingChunks * kChunk;
+};
+
+// Symbol layout: 8 permutation rows a chunk, one 16-byte piece a lane.
+template <int W>
+struct SymbolRing {
+  static constexpr int kRows = 8;
+  static constexpr int kChunk = kRows * W;              // words
+  static constexpr int kWords = kRingChunks * kChunk;
+};
 
 struct SplitArgs {
   const int32_t* k;
@@ -69,6 +113,69 @@ struct SplitArgs {
   const int32_t* keep_hi;
   const int32_t* out_base;
 };
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The lanes of a warp that belong to lane `lane`'s split (all 32 for
+// W >= 32).
+template <int W>
+__device__ __forceinline__ uint32_t segment_mask(int lane) {
+  if constexpr (W >= 32) {
+    return 0xFFFFFFFFu;
+  } else {
+    return ((1u << W) - 1u) << (lane / W * W);
+  }
+}
+
+// Chunk of position `p` clipped to [0, n): chunks are CHUNK units long.
+template <int CHUNK>
+__device__ __forceinline__ int chunk_of(int p, int n) {
+  return static_cast<unsigned>(min(max(p, 0), n - 1)) / CHUNK;
+}
+
+__host__ __device__ constexpr int align16(int bytes) {
+  return (bytes + 15) & ~15;
+}
+
+// Copies chunk `chunk` (CHUNK words of `src`) into its ring slot, one
+// 16-byte piece per lane, and commits one cp.async group -- also when the
+// chunk lies below `lo_chunk` and nothing is copied, so every lane of a
+// split counts the same groups.  Words at or past n_src are zero-filled.
+template <int W, int CHUNK, int RING>
+__device__ __forceinline__ void fill_chunk(uint16_t* ring,
+                                           const uint16_t* __restrict__ src,
+                                           int n_src, int chunk, int lo_chunk,
+                                           int j) {
+  constexpr int kPieces = CHUNK / 8;
+  if (chunk >= lo_chunk) {
+#pragma unroll
+    for (int k = 0; k < (kPieces + W - 1) / W; ++k) {
+      const int p = j + k * W;
+      if (kPieces % W == 0 || p < kPieces) {
+        const int g = chunk * CHUNK + p * 8;
+        const int valid = min(max(n_src - g, 0), 8) * 2;
+        cp_async16(ring + (g & (RING - 1)), valid > 0 ? src + g : src, valid);
+      }
+    }
+  }
+  cp_async_commit();
+}
 
 // slot -> (symbol, f, F).  PACKED: one word sym[0:8] | f[8:20] | F[20:32]
 // from shared memory; otherwise three gathers through the read-only cache.
@@ -90,13 +197,19 @@ __device__ __forceinline__ void slot_decode(const int32_t* sym_lut,
   }
 }
 
-// Stages the packed table in shared memory (no-op for three tables) and
-// returns the table the walk reads.
+// Starts copying the packed table into shared memory (16-byte pieces, one
+// cp.async group; the caller's first wait and barrier complete it) and
+// returns the table the walk reads.  No-op for three tables.
 template <bool PACKED>
 __device__ __forceinline__ const int32_t* stage_lut(
     const int32_t* __restrict__ sym_lut, int lut_size, int32_t* smem) {
   if constexpr (PACKED) {
-    for (int e = threadIdx.x; e < lut_size; e += kBlock) smem[e] = sym_lut[e];
+    const int pieces = lut_size / 4;
+    for (int e = threadIdx.x; e < pieces; e += kBlock)
+      cp_async16(smem + 4 * e, sym_lut + 4 * e, 16);
+    for (int e = pieces * 4 + threadIdx.x; e < lut_size; e += kBlock)
+      smem[e] = sym_lut[e];
+    cp_async_commit();
     return smem;
   } else {
     return sym_lut;
@@ -110,27 +223,33 @@ __device__ __forceinline__ int split_steps(int g_hi, int start, int stop,
   return min(n_steps, g_hi - stop / ways + 1);
 }
 
-template <bool PACKED>
+template <bool PACKED, int W>
 __global__ void __launch_bounds__(kBlock)
-walk_pointer_kernel(const int32_t* __restrict__ stream, int n_stream,
+walk_pointer_kernel(const uint16_t* __restrict__ stream, int n_stream,
                     const int32_t* __restrict__ sym_lut,
                     const int32_t* __restrict__ f_lut,
                     const int32_t* __restrict__ F_lut, int lut_size,
-                    SplitArgs a, int n_splits, int ways, int n_bits,
-                    int n_steps, int32_t* __restrict__ out, int n_out,
+                    SplitArgs a, int n_rows, int n_bits, int n_steps,
+                    int32_t* __restrict__ out, int n_out,
                     int32_t* __restrict__ qf) {
-  extern __shared__ int32_t smem_lut[];
+  using Ring = PointerRing<W>;
+  constexpr int kWarpsPerSplit = W > 32 ? W / 32 : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int warp_reads[2][kBlock / 32];
   __shared__ int block_steps;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int split = blockIdx.x * (kBlock / ways) + tid / ways;
-  const int j = tid % ways;
-  const bool live = split < n_splits;
+  const int split = blockIdx.x * (kBlock / W) + tid / W;
+  const int j = tid % W;
+  const bool live = split < n_rows;
 
-  const int32_t* lut = stage_lut<PACKED>(sym_lut, lut_size, smem_lut);
+  const int32_t* lut =
+      stage_lut<PACKED>(sym_lut, lut_size, reinterpret_cast<int32_t*>(smem));
+  uint16_t* ring = reinterpret_cast<uint16_t*>(
+                       smem + align16(PACKED ? lut_size * 4 : 0)) +
+                   (tid / W) * Ring::kWords;
   if (tid == 0) block_steps = 0;
   __syncthreads();
 
@@ -138,7 +257,7 @@ walk_pointer_kernel(const int32_t* __restrict__ stream, int n_stream,
   int out_base = 0, q = 0;
   uint32_t yb = 0, x = 0;
   if (live) {
-    const int e = split * ways + j;
+    const int e = split * W + j;
     kk = a.k[e];
     yb = static_cast<uint32_t>(a.y[e]) << 16;
     x = static_cast<uint32_t>(a.x0[e]);
@@ -150,132 +269,204 @@ walk_pointer_kernel(const int32_t* __restrict__ stream, int n_stream,
     keep_hi = a.keep_hi[split];
     out_base = a.out_base[split];
     if (j == 0)
-      atomicMax(&block_steps, split_steps(g_hi, start, stop, ways, n_steps));
+      atomicMax(&block_steps, split_steps(g_hi, start, stop, W, n_steps));
   }
+
+  // Ring: chunks top .. top - 3 of the stream; a split that never reads
+  // copies nothing but commits the same groups.
+  const int lo_chunk = live && start >= 0 ? 0 : INT_MAX;
+  int top = chunk_of<Ring::kChunk>(q, n_stream);
+  for (int c = 0; c < kRingChunks; ++c)
+    fill_chunk<W, Ring::kChunk, Ring::kWords>(ring, stream, n_stream, top - c,
+                                              lo_chunk, j);
+  cp_async_wait<kRingChunks - 2>();
   __syncthreads();
   const int steps = block_steps;
 
   // Lanes of this thread's split within its warp, and those above lane j.
-  const int seg_lanes = ways < 32 ? ways : 32;
-  const uint32_t seg_mask =
-      seg_lanes == 32 ? 0xFFFFFFFFu
-                      : ((1u << seg_lanes) - 1u) << (lane / seg_lanes * seg_lanes);
+  const uint32_t seg_mask = segment_mask<W>(lane);
   const uint32_t above = seg_mask & ~(0xFFFFFFFFu >> (31 - lane));
-  const int warps_per_split = ways > 32 ? ways / 32 : 1;
-  const int first_warp = warp / warps_per_split * warps_per_split;
+  const int first_warp = warp / kWarpsPerSplit * kWarpsPerSplit;
   const uint32_t slot_mask = (1u << n_bits) - 1u;
 
-  for (int t = 0; t < steps; ++t) {
-    const int i = (g_hi - t) * ways + j;
+  // Branch-free steps: every lane decodes and reads a word (both from
+  // shared memory, at indices that are always in range) and keeps what its
+  // state says it needs.  Kept rolled: unrolled by two, the step measured
+  // slower on the H100 at every split count.
+  int i = g_hi * W + j;
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t, i -= W) {
     const bool active = live && i <= start && i >= stop;
     const bool recon = active && i == kk;
     const bool dec = active && i < kk;
-    int32_t s = 0;
-    uint32_t x_dec = 0;
-    if (dec) {
-      const uint32_t slot = x & slot_mask;
-      uint32_t f, F;
-      slot_decode<PACKED>(lut, f_lut, F_lut, slot, s, f, F);
-      x_dec = f * (x >> n_bits) + (slot - F);
-    }
-    const bool under = dec && x_dec < kLowerBound;
-    const bool reads = recon || under;
-    const uint32_t ballot = __ballot_sync(0xFFFFFFFFu, reads);
-    int higher = __popc(ballot & above);
-    int split_reads;
-    if (warps_per_split == 1) {
-      split_reads = __popc(ballot & seg_mask);
-    } else {
-      // Double-buffered by step parity: a warp can only overwrite a slot
-      // after every warp has passed the next step's barrier, i.e. after
-      // every read of this step's counts.
-      const int buf = t & 1;
-      if (lane == 0) warp_reads[buf][warp] = __popc(ballot);
-      __syncthreads();
-      split_reads = 0;
-      for (int w = first_warp; w < first_warp + warps_per_split; ++w) {
-        const int c = warp_reads[buf][w];
-        split_reads += c;
-        if (w > warp) higher += c;
-      }
-    }
-    if (reads) {
-      const int idx = min(max(q - higher, 0), n_stream - 1);
-      const uint32_t word = static_cast<uint32_t>(stream[idx]);
-      x = recon ? (yb | word) : ((x_dec << 16) | word);
-    } else if (dec) {
-      x = x_dec;
-    }
-    q -= split_reads;
-    if (dec && i >= keep_lo && i < keep_hi) {
-      const int o = i + out_base;
-      if (o >= 0 && o < n_out) out[o] = s;
-    }
-  }
-  if (live && j == 0) qf[split] = q;
-}
-
-template <bool PACKED, typename PermT>
-__global__ void __launch_bounds__(kBlock)
-walk_symbol_kernel(const PermT* __restrict__ perm, int n_perm,
-                   const int32_t* __restrict__ sym_lut,
-                   const int32_t* __restrict__ f_lut,
-                   const int32_t* __restrict__ F_lut, int lut_size,
-                   SplitArgs a, int n_splits, int ways, int n_bits,
-                   int n_steps, int32_t* __restrict__ out, int n_out) {
-  extern __shared__ int32_t smem_lut[];
-  const int tid = threadIdx.x;
-  const int split = blockIdx.x * (kBlock / ways) + tid / ways;
-  const int j = tid % ways;
-
-  const int32_t* lut = stage_lut<PACKED>(sym_lut, lut_size, smem_lut);
-  __syncthreads();
-  if (split >= n_splits) return;
-
-  const int e = split * ways + j;
-  const int kk = a.k[e];
-  const uint32_t yb = static_cast<uint32_t>(a.y[e]) << 16;
-  uint32_t x = static_cast<uint32_t>(a.x0[e]);
-  const int g_hi = a.g_hi[split];
-  const int start = a.start[split];
-  const int stop = a.stop[split];
-  const int keep_lo = a.keep_lo[split];
-  const int keep_hi = a.keep_hi[split];
-  const int out_base = a.out_base[split];
-  // Row of the permutation viewed (groups, W) that holds group g_hi.
-  const int row0 = g_hi + a.base[split] / ways;
-  const int last_row = n_perm / ways - 1;
-  const int steps = split_steps(g_hi, start, stop, ways, n_steps);
-  const uint32_t slot_mask = (1u << n_bits) - 1u;
-
-  for (int t = 0; t < steps; ++t) {
-    const int i = (g_hi - t) * ways + j;
-    if (i > start || i < stop || i > kk) continue;
-    uint32_t word = 0;
-    if (i == kk) {
-      word = static_cast<uint32_t>(perm[min(max(row0 - t, 0), last_row) * ways + j]);
-      x = yb | word;
-      continue;
-    }
     const uint32_t slot = x & slot_mask;
     int32_t s;
     uint32_t f, F;
     slot_decode<PACKED>(lut, f_lut, F_lut, slot, s, f, F);
-    x = f * (x >> n_bits) + (slot - F);
-    if (x < kLowerBound) {
-      word = static_cast<uint32_t>(perm[min(max(row0 - t, 0), last_row) * ways + j]);
-      x = (x << 16) | word;
+    const uint32_t x_dec = f * (x >> n_bits) + (slot - F);
+    const bool reads = recon || (dec && x_dec < kLowerBound);
+    if constexpr (kWarpsPerSplit > 1) cp_async_wait<kRingChunks - 2>();
+    const uint32_t ballot = __ballot_sync(0xFFFFFFFFu, reads);
+    int higher = __popc(ballot & above);
+    int split_reads;
+    if constexpr (kWarpsPerSplit == 1) {
+      split_reads = __popc(ballot & seg_mask);
+    } else {
+      // Double-buffered by step parity: a warp can only overwrite a slot
+      // after every warp has passed the next step's barrier, i.e. after
+      // every read of this step's counts.  The barrier also publishes the
+      // ring chunks waited for above.
+      const int buf = t & 1;
+      if (lane == 0) warp_reads[buf][warp] = __popc(ballot);
+      __syncthreads();
+      split_reads = 0;
+      for (int w = first_warp; w < first_warp + kWarpsPerSplit; ++w) {
+        const int cnt = warp_reads[buf][w];
+        split_reads += cnt;
+        if (w > warp) higher += cnt;
+      }
     }
-    if (i >= keep_lo && i < keep_hi) {
-      const int o = i + out_base;
-      if (o >= 0 && o < n_out) out[o] = s;
+    const int idx = min(max(q - higher, 0), n_stream - 1);
+    const uint32_t word = ring[idx & (Ring::kWords - 1)];
+    const uint32_t x_read = (recon ? yb : x_dec << 16) | word;
+    x = reads ? x_read : (dec ? x_dec : x);
+    q -= split_reads;
+    const int o = i + out_base;
+    if (dec && i >= keep_lo && i < keep_hi && o >= 0 && o < n_out) out[o] = s;
+    // When q leaves its chunk, the chunk's slot takes the chunk four below,
+    // once every lane of the split is done with this step's words; then the
+    // chunk now below q's must have landed, for every lane.
+    const int c = chunk_of<Ring::kChunk>(q, n_stream);
+    if constexpr (kWarpsPerSplit == 1) {
+      if (c < top) {  // uniform over the split
+        __syncwarp(seg_mask);
+        top = c;
+        fill_chunk<W, Ring::kChunk, Ring::kWords>(
+            ring, stream, n_stream, top - (kRingChunks - 1), lo_chunk, j);
+        cp_async_wait<kRingChunks - 2>();
+        __syncwarp(seg_mask);
+      }
+    } else {
+      __syncthreads();
+      if (c < top) {
+        top = c;
+        fill_chunk<W, Ring::kChunk, Ring::kWords>(
+            ring, stream, n_stream, top - (kRingChunks - 1), lo_chunk, j);
+      }
     }
   }
+  cp_async_wait<0>();
+  if (live && j == 0) qf[split] = q;
 }
 
-int blocks_for(int n_splits, int ways) {
+template <bool PACKED, int W>
+__global__ void __launch_bounds__(kBlock)
+walk_symbol_kernel(const uint16_t* __restrict__ perm, int n_perm,
+                   const int32_t* __restrict__ sym_lut,
+                   const int32_t* __restrict__ f_lut,
+                   const int32_t* __restrict__ F_lut, int lut_size,
+                   SplitArgs a, int n_rows, int n_bits, int n_steps,
+                   int32_t* __restrict__ out, int n_out) {
+  using Ring = SymbolRing<W>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int block_steps;
+
+  const int tid = threadIdx.x;
+  const int split = blockIdx.x * (kBlock / W) + tid / W;
+  const int j = tid % W;
+  const bool live = split < n_rows;
+
+  const int32_t* lut =
+      stage_lut<PACKED>(sym_lut, lut_size, reinterpret_cast<int32_t*>(smem));
+  uint16_t* ring = reinterpret_cast<uint16_t*>(
+                       smem + align16(PACKED ? lut_size * 4 : 0)) +
+                   (tid / W) * Ring::kWords;
+  if (tid == 0) block_steps = 0;
+  __syncthreads();
+
+  int kk = 0, start = -1, stop = 0, keep_lo = 0, keep_hi = 0, g_hi = 0;
+  int out_base = 0, row0 = 0, my_steps = 0;
+  uint32_t yb = 0, x = 0;
+  const int last_row = n_perm / W - 1;
+  if (live) {
+    const int e = split * W + j;
+    kk = a.k[e];
+    yb = static_cast<uint32_t>(a.y[e]) << 16;
+    x = static_cast<uint32_t>(a.x0[e]);
+    g_hi = a.g_hi[split];
+    start = a.start[split];
+    stop = a.stop[split];
+    keep_lo = a.keep_lo[split];
+    keep_hi = a.keep_hi[split];
+    out_base = a.out_base[split];
+    // Row of the permutation viewed (rows, W) that holds group g_hi.
+    row0 = g_hi + a.base[split] / W;
+    my_steps = split_steps(g_hi, start, stop, W, n_steps);
+    if (j == 0) atomicMax(&block_steps, my_steps);
+  }
+
+  // Ring: chunks of 8 rows, from the chunk of row0 down to the chunk of the
+  // split's last row; the slot of the chunk just left guards its readers.
+  const int lo_chunk =
+      my_steps > 0 ? chunk_of<Ring::kRows>(row0 - my_steps + 1, last_row + 1)
+                   : INT_MAX;
+  int top = chunk_of<Ring::kRows>(row0, last_row + 1);
+  for (int c = 0; c < kRingChunks - 1; ++c)
+    fill_chunk<W, Ring::kChunk, Ring::kWords>(ring, perm, n_perm, top - c,
+                                              lo_chunk, j);
+  cp_async_wait<kRingChunks - 2>();   // the table and the first chunk
+  __syncthreads();
+  const int steps = block_steps;
+  const uint32_t seg_mask = segment_mask<W>(tid & 31);
+  const uint32_t slot_mask = (1u << n_bits) - 1u;
+
+  int i = g_hi * W + j;
+  for (int t = 0; t < steps; ++t, i -= W) {
+    const int r = min(max(row0 - t, 0), last_row);
+    const int c = static_cast<unsigned>(r) / Ring::kRows;
+    // Entering a chunk: its copies (issued two chunks ago) must have
+    // landed, for every lane; meanwhile the chunk two below starts.
+    if constexpr (W <= 32) {
+      if (c < top) {  // uniform over the split
+        top = c;
+        fill_chunk<W, Ring::kChunk, Ring::kWords>(
+            ring, perm, n_perm, top - (kRingChunks - 2), lo_chunk, j);
+        cp_async_wait<kRingChunks - 2>();
+        __syncwarp(seg_mask);
+      }
+    } else {
+      if (c < top) {
+        top = c;
+        fill_chunk<W, Ring::kChunk, Ring::kWords>(
+            ring, perm, n_perm, top - (kRingChunks - 2), lo_chunk, j);
+      }
+      cp_async_wait<kRingChunks - 2>();
+      __syncthreads();
+    }
+    const bool active = live && i <= start && i >= stop;
+    const bool recon = active && i == kk;
+    const bool dec = active && i < kk;
+    const uint32_t word = ring[(r * W + j) & (Ring::kWords - 1)];
+    const uint32_t slot = x & slot_mask;
+    int32_t s;
+    uint32_t f, F;
+    slot_decode<PACKED>(lut, f_lut, F_lut, slot, s, f, F);
+    const uint32_t x_dec = f * (x >> n_bits) + (slot - F);
+    const uint32_t x_next = x_dec < kLowerBound ? (x_dec << 16) | word : x_dec;
+    x = recon ? (yb | word) : (dec ? x_next : x);
+    const int o = i + out_base;
+    if (dec && i >= keep_lo && i < keep_hi && o >= 0 && o < n_out) out[o] = s;
+  }
+  cp_async_wait<0>();
+}
+
+int blocks_for(int n_rows, int ways) {
   const int per_block = kBlock / ways;
-  return (n_splits + per_block - 1) / per_block;
+  return (n_rows + per_block - 1) / per_block;
+}
+
+int lut_bytes(bool packed, int lut_size) {
+  return align16(packed ? lut_size * 4 : 0);
 }
 
 SplitArgs split_args(const void* k, const void* y, const void* x0,
@@ -294,29 +485,74 @@ SplitArgs split_args(const void* k, const void* y, const void* x0,
                    static_cast<const int32_t*>(out_base)};
 }
 
-template <typename PermT>
-void launch_symbol(const void* perm, int n_perm, const int32_t* sym_lut,
-                   const int32_t* f_lut, const int32_t* F_lut, int lut_size,
-                   const SplitArgs& a, int n_splits, int ways, int n_bits,
-                   int n_steps, int32_t* out, int n_out, cudaStream_t st) {
-  const int grid = blocks_for(n_splits, ways);
-  const PermT* p = static_cast<const PermT*>(perm);
-  if (f_lut == nullptr) {
-    walk_symbol_kernel<true, PermT>
-        <<<grid, kBlock, lut_size * sizeof(int32_t), st>>>(
-            p, n_perm, sym_lut, f_lut, F_lut, lut_size, a, n_splits, ways,
-            n_bits, n_steps, out, n_out);
-  } else {
-    walk_symbol_kernel<false, PermT><<<grid, kBlock, 0, st>>>(
-        p, n_perm, sym_lut, f_lut, F_lut, lut_size, a, n_splits, ways,
-        n_bits, n_steps, out, n_out);
+struct Launch {
+  const uint16_t* words;
+  int n_words;
+  const int32_t* sym_lut;
+  const int32_t* f_lut;
+  const int32_t* F_lut;
+  int lut_size;
+  SplitArgs a;
+  int n_rows;
+  int n_bits;
+  int n_steps;
+  int32_t* out;
+  int n_out;
+  int32_t* qf;
+  cudaStream_t st;
+};
+
+template <bool PACKED, int W>
+void launch_pointer(const Launch& L) {
+  const size_t smem = lut_bytes(PACKED, L.lut_size) +
+                      (kBlock / W) * PointerRing<W>::kWords * sizeof(uint16_t);
+  walk_pointer_kernel<PACKED, W>
+      <<<blocks_for(L.n_rows, W), kBlock, smem, L.st>>>(
+          L.words, L.n_words, L.sym_lut, L.f_lut, L.F_lut, L.lut_size, L.a,
+          L.n_rows, L.n_bits, L.n_steps, L.out, L.n_out, L.qf);
+}
+
+template <bool PACKED, int W>
+void launch_symbol(const Launch& L) {
+  const size_t smem = lut_bytes(PACKED, L.lut_size) +
+                      (kBlock / W) * SymbolRing<W>::kWords * sizeof(uint16_t);
+  walk_symbol_kernel<PACKED, W>
+      <<<blocks_for(L.n_rows, W), kBlock, smem, L.st>>>(
+          L.words, L.n_words, L.sym_lut, L.f_lut, L.F_lut, L.lut_size, L.a,
+          L.n_rows, L.n_bits, L.n_steps, L.out, L.n_out);
+}
+
+// One instance per (table layout, W); false if W is not 8..128.
+template <bool PACKED>
+bool launch_pointer_ways(int ways, const Launch& L) {
+  switch (ways) {
+    case 8: launch_pointer<PACKED, 8>(L); return true;
+    case 16: launch_pointer<PACKED, 16>(L); return true;
+    case 32: launch_pointer<PACKED, 32>(L); return true;
+    case 64: launch_pointer<PACKED, 64>(L); return true;
+    case 128: launch_pointer<PACKED, 128>(L); return true;
+    default: return false;
+  }
+}
+
+template <bool PACKED>
+bool launch_symbol_ways(int ways, const Launch& L) {
+  switch (ways) {
+    case 8: launch_symbol<PACKED, 8>(L); return true;
+    case 16: launch_symbol<PACKED, 16>(L); return true;
+    case 32: launch_symbol<PACKED, 32>(L); return true;
+    case 64: launch_symbol<PACKED, 64>(L); return true;
+    case 128: launch_symbol<PACKED, 128>(L); return true;
+    default: return false;
   }
 }
 
 }  // namespace
 
 // Plain C launchers, bound from Python with ctypes.  Every pointer is a
-// device pointer; f_lut == nullptr selects the packed table.  Each returns
+// device pointer; the stream and the permutation are 16-bit words and must
+// be 16-byte aligned, as must the slot tables; f_lut == nullptr selects the
+// packed table.  The grid covers all n_rows splits.  Each returns
 // cudaGetLastError() after its launch (0 = launched).
 
 extern "C" int rans_walk_pointer(
@@ -324,51 +560,54 @@ extern "C" int rans_walk_pointer(
     const void* F_lut, int lut_size, const void* k, const void* y,
     const void* x0, const void* q0, const void* g_hi, const void* start,
     const void* stop, const void* keep_lo, const void* keep_hi,
-    const void* out_base, int n_splits, int ways, int n_bits, int n_steps,
+    const void* out_base, int n_rows, int ways, int n_bits, int n_steps,
     void* out, int n_out, void* qf, void* cuda_stream) {
-  const SplitArgs a = split_args(k, y, x0, q0, g_hi, start, stop, keep_lo,
-                                 keep_hi, out_base);
-  const int grid = blocks_for(n_splits, ways);
-  cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-  const int32_t* s = static_cast<const int32_t*>(stream);
-  const int32_t* lut = static_cast<const int32_t*>(sym_lut);
-  const int32_t* fl = static_cast<const int32_t*>(f_lut);
-  const int32_t* Fl = static_cast<const int32_t*>(F_lut);
-  int32_t* o = static_cast<int32_t*>(out);
-  int32_t* q = static_cast<int32_t*>(qf);
-  if (fl == nullptr) {
-    walk_pointer_kernel<true><<<grid, kBlock, lut_size * sizeof(int32_t), st>>>(
-        s, n_stream, lut, fl, Fl, lut_size, a, n_splits, ways, n_bits,
-        n_steps, o, n_out, q);
-  } else {
-    walk_pointer_kernel<false><<<grid, kBlock, 0, st>>>(
-        s, n_stream, lut, fl, Fl, lut_size, a, n_splits, ways, n_bits,
-        n_steps, o, n_out, q);
-  }
+  const Launch L{static_cast<const uint16_t*>(stream),
+                 n_stream,
+                 static_cast<const int32_t*>(sym_lut),
+                 static_cast<const int32_t*>(f_lut),
+                 static_cast<const int32_t*>(F_lut),
+                 lut_size,
+                 split_args(k, y, x0, q0, g_hi, start, stop, keep_lo, keep_hi,
+                            out_base),
+                 n_rows,
+                 n_bits,
+                 n_steps,
+                 static_cast<int32_t*>(out),
+                 n_out,
+                 static_cast<int32_t*>(qf),
+                 static_cast<cudaStream_t>(cuda_stream)};
+  const bool ok = f_lut == nullptr ? launch_pointer_ways<true>(ways, L)
+                                   : launch_pointer_ways<false>(ways, L);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rans_walk_symbol(
-    const void* perm, int perm_bytes, int n_perm, const void* sym_lut,
-    const void* f_lut, const void* F_lut, int lut_size, const void* k,
-    const void* y, const void* x0, const void* sym_base, const void* g_hi,
-    const void* start, const void* stop, const void* keep_lo,
-    const void* keep_hi, const void* out_base, int n_splits, int ways,
-    int n_bits, int n_steps, void* out, int n_out, void* cuda_stream) {
-  const SplitArgs a = split_args(k, y, x0, sym_base, g_hi, start, stop,
-                                 keep_lo, keep_hi, out_base);
-  cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-  const int32_t* lut = static_cast<const int32_t*>(sym_lut);
-  const int32_t* fl = static_cast<const int32_t*>(f_lut);
-  const int32_t* Fl = static_cast<const int32_t*>(F_lut);
-  int32_t* o = static_cast<int32_t*>(out);
-  if (perm_bytes == 2) {
-    launch_symbol<uint16_t>(perm, n_perm, lut, fl, Fl, lut_size, a, n_splits,
-                            ways, n_bits, n_steps, o, n_out, st);
-  } else {
-    launch_symbol<uint32_t>(perm, n_perm, lut, fl, Fl, lut_size, a, n_splits,
-                            ways, n_bits, n_steps, o, n_out, st);
-  }
+    const void* perm, int n_perm, const void* sym_lut, const void* f_lut,
+    const void* F_lut, int lut_size, const void* k, const void* y,
+    const void* x0, const void* sym_base, const void* g_hi, const void* start,
+    const void* stop, const void* keep_lo, const void* keep_hi,
+    const void* out_base, int n_rows, int ways, int n_bits, int n_steps,
+    void* out, int n_out, void* cuda_stream) {
+  const Launch L{static_cast<const uint16_t*>(perm),
+                 n_perm,
+                 static_cast<const int32_t*>(sym_lut),
+                 static_cast<const int32_t*>(f_lut),
+                 static_cast<const int32_t*>(F_lut),
+                 lut_size,
+                 split_args(k, y, x0, sym_base, g_hi, start, stop, keep_lo,
+                            keep_hi, out_base),
+                 n_rows,
+                 n_bits,
+                 n_steps,
+                 static_cast<int32_t*>(out),
+                 n_out,
+                 nullptr,
+                 static_cast<cudaStream_t>(cuda_stream)};
+  const bool ok = f_lut == nullptr ? launch_symbol_ways<true>(ways, L)
+                                   : launch_symbol_ways<false>(ways, L);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -65,9 +65,9 @@ def decode(batch: WalkBatch, stream: np.ndarray, model: StaticModel,
     if n_symbols >= 2 ** 31:
         raise ValueError(
             f"n_symbols={n_symbols} exceeds int32 device-scatter indices")
-    words = np.ascontiguousarray(stream).astype(np.int32)
+    words = np.ascontiguousarray(stream).astype(np.uint16).view(np.int16)
     if words.size == 0:
-        words = np.zeros(1, np.int32)    # never read; keeps the pointer valid
+        words = np.zeros(1, np.int16)    # never read; keeps the pointer valid
     arrs = pad_split_arrays(batch, batch.k.shape[0], dev)
     out, _qf = walk_decode_pointer(
         torch.as_tensor(words, device=dev), *_luts(model, packed_lut, dev),

@@ -16,8 +16,13 @@ Each wrapper takes the tensors of a decode plan (the argument order of
     current stream and bumps its ``launches`` counter — or raises.  There
     is no fallback from the kernel to the plain walk.
 
-u32 values (states, words) travel as int32 bit patterns; a u16 permutation
-travels as int16 bit patterns.
+The grid covers every split row it is given.  ``covered`` says that the
+kept windows tile the output, so the kernel writes every position and the
+CUDA path allocates it without the ``-1`` fill; the ``fills`` counter
+counts the fills it does run.  The plain walks ignore it and always fill.
+
+u32 values (states) travel as int32 bit patterns; the 16-bit stream words
+and permutation entries travel as int16 bit patterns.
 """
 
 from __future__ import annotations
@@ -100,7 +105,7 @@ def load_library() -> ctypes.CDLL:
                 i, i, i, i, p, i, p, p]
             lib.rans_walk_pointer.restype = i
             lib.rans_walk_symbol.argtypes = [
-                p, i, i, p, p, p, i, p, p, p, p, p, p, p, p, p, p,
+                p, i, p, p, p, i, p, p, p, p, p, p, p, p, p, p,
                 i, i, i, i, p, i, p]
             lib.rans_walk_symbol.restype = i
             lib.rans_walk_error_string.argtypes = [i]
@@ -110,10 +115,11 @@ def load_library() -> ctypes.CDLL:
 
 
 def reset_counts() -> None:
-    """Zero both wrappers' ``launches`` and ``plain_calls``."""
+    """Zero both wrappers' ``launches``, ``plain_calls`` and ``fills``."""
     for fn in (walk_decode_pointer, walk_decode_symbol):
         fn.launches = 0
         fn.plain_calls = 0
+        fn.fills = 0
 
 
 def _ptr(t: torch.Tensor | None):
@@ -123,13 +129,14 @@ def _ptr(t: torch.Tensor | None):
 def _check_cuda(named: dict, luts: tuple, *, ways: int, n_bits: int,
                 n_steps: int, n_symbols: int) -> torch.device:
     """Validate what the kernels take: one CUDA device, int32, contiguous,
-    (S, W) per-lane and (S,) per-split arrays, a slot table of 2^n entries,
-    power-of-two ways <= 128, and int32-sized counts."""
+    (S, W) per-lane and (S,) per-split arrays, 16-byte aligned slot tables
+    of 2^n entries, power-of-two ways in [8, 128], and int32-sized
+    counts."""
     dev = named["k"].device
     if dev.type != "cuda":
         raise ValueError(f"kernel wrappers take CUDA or CPU tensors, got {dev}")
-    if ways < 1 or ways > BLOCK or ways & (ways - 1):
-        raise ValueError(f"ways={ways} must be a power of two <= {BLOCK}")
+    if ways < 8 or ways > BLOCK or ways & (ways - 1):
+        raise ValueError(f"ways={ways} must be a power of two in [8, {BLOCK}]")
     if not 1 <= n_bits <= 16:
         raise ValueError(f"n_bits={n_bits} outside [1, 16]")
     S = named["k"].shape[0]
@@ -146,14 +153,38 @@ def _check_cuda(named: dict, luts: tuple, *, ways: int, n_bits: int,
     for t in luts:
         if t is not None and (t.device != dev or t.dtype != torch.int32 or
                               tuple(t.shape) != (1 << n_bits,) or
-                              not t.is_contiguous()):
-            raise ValueError(f"slot tables must be contiguous int32[2^{n_bits}] "
-                             f"on {dev}")
+                              not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"slot tables must be contiguous, 16-byte "
+                             f"aligned int32[2^{n_bits}] on {dev}")
     if f_lut is None and n_bits > 12:
         raise ValueError("the packed slot table requires n <= 12")
     if max(n_steps, n_symbols) >= 2 ** 31:
         raise ValueError("step and output counts must fit int32")
     return dev
+
+
+def _check_words(words: torch.Tensor, dev: torch.device, name: str,
+                 multiple: int = 1) -> None:
+    """The stream or permutation: contiguous, 16-byte aligned int16 (u16 bit
+    patterns) on ``dev``, non-empty, a whole number of ``multiple``."""
+    n = words.numel()
+    if words.device != dev or words.dtype != torch.int16 or \
+            words.dim() != 1 or not words.is_contiguous() or n == 0 or \
+            n % multiple or n >= 2 ** 31 or words.data_ptr() % 16:
+        raise ValueError(
+            f"{name} must be a non-empty, contiguous, 16-byte aligned "
+            f"int16[n] on {dev} with n a multiple of {multiple}; got "
+            f"{words.dtype}{list(words.shape)} on {words.device}")
+
+
+def _output(fn, n_symbols: int, covered: bool,
+            dev: torch.device) -> torch.Tensor:
+    """A new int32[n_symbols] output, filled with -1 unless the kernel
+    writes every position."""
+    if covered:
+        return torch.empty(n_symbols, dtype=torch.int32, device=dev)
+    fn.fills += 1
+    return torch.full((n_symbols,), -1, dtype=torch.int32, device=dev)
 
 
 def _raise_on(lib, err: int, name: str) -> None:
@@ -164,11 +195,13 @@ def _raise_on(lib, err: int, name: str) -> None:
 
 def walk_decode_pointer(stream, sym_lut, f_lut, F_lut, k, y, x0, q0, g_hi,
                         start, stop, keep_lo, keep_hi, out_base, *,
-                        n_bits: int, ways: int, n_steps: int, n_symbols: int):
-    """Pointer-layout walk + scatter.  ``stream`` is int32[n] (16-bit words);
-    ``f_lut = F_lut = None`` selects the packed slot table.  Returns
-    ``(out int32[n_symbols], qf int32[S])``: -1 where no symbol was kept,
-    and each split's final stream pointer."""
+                        n_bits: int, ways: int, n_steps: int, n_symbols: int,
+                        covered: bool = False):
+    """Pointer-layout walk + scatter.  ``stream`` is the 16-bit words as
+    int16 (the plain walk also takes int32); ``f_lut = F_lut = None``
+    selects the packed slot table.  Returns ``(out int32[n_symbols],
+    qf int32[S])``: -1 where no symbol was kept (unless ``covered``), and
+    each split's final stream pointer."""
     args = (stream, sym_lut, f_lut, F_lut, k, y, x0, q0, g_hi, start, stop,
             keep_lo, keep_hi, out_base)
     statics = dict(n_bits=n_bits, ways=ways, n_steps=n_steps,
@@ -179,16 +212,12 @@ def walk_decode_pointer(stream, sym_lut, f_lut, F_lut, k, y, x0, q0, g_hi,
     named = dict(k=k, y=y, x0=x0, q0=q0, g_hi=g_hi, start=start, stop=stop,
                  keep_lo=keep_lo, keep_hi=keep_hi, out_base=out_base)
     dev = _check_cuda(named, (sym_lut, f_lut, F_lut), **statics)
-    if stream.device != dev or stream.dtype != torch.int32 or \
-            stream.dim() != 1 or stream.numel() == 0 or \
-            not stream.is_contiguous() or stream.numel() >= 2 ** 31:
-        raise ValueError("stream must be a non-empty contiguous int32[n] on "
-                         f"{dev}")
+    _check_words(stream, dev, "stream")
     S = k.shape[0]
-    out = torch.full((n_symbols,), -1, dtype=torch.int32, device=dev)
-    qf = torch.empty(S, dtype=torch.int32, device=dev)
+    out = _output(walk_decode_pointer, n_symbols, covered, dev)
     if S == 0:
-        return out, qf
+        return out, q0.clone()
+    qf = torch.empty(S, dtype=torch.int32, device=dev)
     lib = load_library()
     err = lib.rans_walk_pointer(
         stream.data_ptr(), stream.numel(), sym_lut.data_ptr(), _ptr(f_lut),
@@ -204,10 +233,12 @@ def walk_decode_pointer(stream, sym_lut, f_lut, F_lut, k, y, x0, q0, g_hi,
 
 def walk_decode_symbol(by_symbol, sym_lut, f_lut, F_lut, k, y, x0, sym_base,
                        g_hi, start, stop, keep_lo, keep_hi, out_base, *,
-                       n_bits: int, ways: int, n_steps: int, n_symbols: int):
+                       n_bits: int, ways: int, n_steps: int, n_symbols: int,
+                       covered: bool = False):
     """Symbol-layout (pointer-free) walk + scatter.  ``by_symbol`` is the
-    ``words_by_symbol`` permutation as int16 (u16) or int32 (u32) bit
-    patterns, a whole number of W-wide groups.  Returns int32[n_symbols]."""
+    ``words_by_symbol`` permutation as int16 (u16) bit patterns (the plain
+    walk also takes int32), a whole number of W-wide groups.  Returns
+    int32[n_symbols]; the options are :func:`walk_decode_pointer`'s."""
     args = (by_symbol, sym_lut, f_lut, F_lut, k, y, x0, sym_base, g_hi, start,
             stop, keep_lo, keep_hi, out_base)
     statics = dict(n_bits=n_bits, ways=ways, n_steps=n_steps,
@@ -219,27 +250,19 @@ def walk_decode_symbol(by_symbol, sym_lut, f_lut, F_lut, k, y, x0, sym_base,
                  stop=stop, keep_lo=keep_lo, keep_hi=keep_hi,
                  out_base=out_base)
     dev = _check_cuda(named, (sym_lut, f_lut, F_lut), **statics)
-    n_perm = by_symbol.numel()
-    if by_symbol.device != dev or \
-            by_symbol.dtype not in (torch.int16, torch.int32) or \
-            by_symbol.dim() != 1 or not by_symbol.is_contiguous() or \
-            n_perm == 0 or n_perm % ways or n_perm >= 2 ** 31:
-        raise ValueError(
-            "by_symbol must be a contiguous int16/int32[n] on "
-            f"{dev} with n a non-zero multiple of ways={ways}")
+    _check_words(by_symbol, dev, "by_symbol", ways)
     S = k.shape[0]
-    out = torch.full((n_symbols,), -1, dtype=torch.int32, device=dev)
+    out = _output(walk_decode_symbol, n_symbols, covered, dev)
     if S == 0:
         return out
     lib = load_library()
     err = lib.rans_walk_symbol(
-        by_symbol.data_ptr(), by_symbol.element_size(), n_perm,
-        sym_lut.data_ptr(), _ptr(f_lut), _ptr(F_lut), sym_lut.numel(),
-        k.data_ptr(), y.data_ptr(), x0.data_ptr(), sym_base.data_ptr(),
-        g_hi.data_ptr(), start.data_ptr(), stop.data_ptr(),
-        keep_lo.data_ptr(), keep_hi.data_ptr(), out_base.data_ptr(), S, ways,
-        n_bits, n_steps, out.data_ptr(), n_symbols,
-        torch.cuda.current_stream(dev).cuda_stream)
+        by_symbol.data_ptr(), by_symbol.numel(), sym_lut.data_ptr(),
+        _ptr(f_lut), _ptr(F_lut), sym_lut.numel(), k.data_ptr(),
+        y.data_ptr(), x0.data_ptr(), sym_base.data_ptr(), g_hi.data_ptr(),
+        start.data_ptr(), stop.data_ptr(), keep_lo.data_ptr(),
+        keep_hi.data_ptr(), out_base.data_ptr(), S, ways, n_bits, n_steps,
+        out.data_ptr(), n_symbols, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "rans_walk_symbol")
     walk_decode_symbol.launches += 1
     return out

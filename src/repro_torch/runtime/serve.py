@@ -422,15 +422,12 @@ def _fuse_permutations(streams: list[DeviceStream]) -> tuple:
     if any(ds.by_symbol is None for ds in streams):
         return None, 0, {id(ds): 0 for ds in streams}
     bucket = pow2_bucket(total, 1024)
-    # Small streams store the permutation as u16; a fused group's offsets
-    # can exceed 2^16, so fusion upcasts every part to the common u32 width
-    # (int32 bit patterns: a u16 part widens with its sign bit cleared).
-    parts = [ds.by_symbol.to(torch.int32) & 0xFFFF
-             if ds.by_symbol.dtype == torch.int16 else ds.by_symbol
-             for ds in streams]
+    # Entries are 16-bit stream words, not offsets, so the fused permutation
+    # stays u16 (int16 bit patterns) however long the group is.
+    parts = [ds.by_symbol for ds in streams]
     dev = streams[0].words.device
     if bucket > total:
-        parts.append(torch.zeros(bucket - total, dtype=torch.int32,
+        parts.append(torch.zeros(bucket - total, dtype=torch.int16,
                                  device=dev))
     return torch.cat(parts), bucket, perm_off
 
@@ -454,7 +451,7 @@ def _fuse_streams(streams: list[DeviceStream]) -> tuple[DeviceStream, dict,
     by_symbol, sym_bucket, perm_off = _fuse_permutations(streams)
     parts = [ds.words for ds in streams]
     if bucket > total:
-        parts.append(torch.zeros(bucket - total, dtype=torch.int32,
+        parts.append(torch.zeros(bucket - total, dtype=torch.int16,
                                  device=streams[0].words.device))
     fused = DeviceStream(words=torch.cat(parts), host=None, n_words=total,
                          bucket=bucket, by_symbol=by_symbol,

@@ -32,6 +32,15 @@ def cuda_device():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _int16(words, device, pad=0):
+    """16-bit words as the int16 bit patterns the kernels take, with ``pad``
+    zero words appended (never read by a valid walk)."""
+    import torch
+    a = np.concatenate([np.asarray(words, np.uint16),
+                        np.zeros(pad, np.uint16)])
+    return torch.as_tensor(a.view(np.int16), device=device)
+
+
 def _content(seed, n, ways, n_bits, n_splits):
     from repro_torch.core import recoil
     from repro_torch.core.rans import RansParams, StaticModel
@@ -68,9 +77,9 @@ def test_kernels_equal_plain(cuda_device, ways, n_bits):
     arrs = pad_split_arrays(batch, batch.k.shape[0], dev)
     statics = dict(n_bits=n_bits, ways=ways, n_steps=batch.n_steps,
                    n_symbols=n)
-    words = torch.as_tensor(enc.stream.astype(np.int32), device=dev)
+    words = _int16(enc.stream, dev)
     wbs = words_by_symbol_host(enc.stream, enc.k_of_word, n)
-    wbs = np.concatenate([wbs, np.zeros((-n) % ways, np.uint32)])
+    by = _int16(wbs, dev, (-n) % ways)
     for packed in sorted({False, packed_lut_ok(model)}):
         luts = _luts(model, packed, dev)
         ptr_args = (words, *luts, *(arrs[f] for f in SPLIT_FIELDS))
@@ -79,15 +88,59 @@ def test_kernels_equal_plain(cuda_device, ways, n_bits):
         torch.cuda.synchronize()
         assert torch.equal(out, ref_out) and torch.equal(qf, ref_qf)
         assert (out.cpu().numpy() == syms).all()
-        for perm in (np.uint16, np.uint32):
-            view = np.int16 if perm == np.uint16 else np.int32
-            by = torch.as_tensor(wbs.astype(perm).view(view), device=dev)
-            sym_args = (by, *luts, *(arrs[f] for f in SYMBOL_SPLIT_FIELDS))
-            out = walk_decode_symbol(*sym_args, **statics)
-            ref = _walk_batch_symbol_impl(*sym_args, **statics)
+        sym_args = (by, *luts, *(arrs[f] for f in SYMBOL_SPLIT_FIELDS))
+        out = walk_decode_symbol(*sym_args, **statics)
+        ref = _walk_batch_symbol_impl(*sym_args, **statics)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+        assert (out.cpu().numpy() == syms).all()
+
+
+@pytest.mark.parametrize("ways", [8, 32, 128])
+@pytest.mark.parametrize("n_bits", [11, 16])
+@in_child
+def test_kernels_cross_ring_refills_and_reach_word_0(cuda_device, ways,
+                                                     n_bits):
+    """Few long splits (hundreds of ring refills each), streams whose length
+    is not a multiple of 8, the bottom split reading down to word 0, and
+    inert padding rows (``start = -1``) under ``covered``: equal to the
+    plain walks."""
+    import torch
+    from repro_torch.core.engine import (SPLIT_FIELDS, SYMBOL_SPLIT_FIELDS,
+                                         kept_windows_tile, pad_split_arrays)
+    from repro_torch.core.vectorized import (_walk_batch_impl,
+                                             _walk_batch_symbol_impl,
+                                             words_by_symbol_host)
+    from repro_torch.kernels.rans_decode.ops import _luts, packed_lut_ok
+    from repro_torch.kernels.rans_decode.rans_decode import (
+        walk_decode_pointer, walk_decode_symbol)
+    syms, model, enc, batch = _content(ways * 7 + n_bits, 60_000, ways,
+                                       n_bits, 3)
+    n = len(syms)
+    dev = cuda_device
+    S = batch.k.shape[0]
+    assert kept_windows_tile(batch, n)
+    arrs = pad_split_arrays(batch, S + 5, dev)
+    statics = dict(n_bits=n_bits, ways=ways, n_steps=batch.n_steps,
+                   n_symbols=n)
+    wbs = words_by_symbol_host(enc.stream, enc.k_of_word, n)
+    for packed in sorted({False, packed_lut_ok(model)}):
+        luts = _luts(model, packed, dev)
+        for pad in (0, 1, 3, 8):
+            words = _int16(enc.stream, dev, pad)
+            a = (words, *luts, *(arrs[f] for f in SPLIT_FIELDS))
+            out, qf = walk_decode_pointer(*a, **statics, covered=True)
+            ref_out, ref_qf = _walk_batch_impl(*a, **statics)
             torch.cuda.synchronize()
-            assert torch.equal(out, ref)
-            assert (out.cpu().numpy() == syms).all()
+            assert int(ref_qf.min()) == -1        # read down to word 0
+            assert torch.equal(out, ref_out) and torch.equal(qf, ref_qf)
+        by = _int16(wbs, dev, (-n) % ways + 3 * ways)
+        a = (by, *luts, *(arrs[f] for f in SYMBOL_SPLIT_FIELDS))
+        out = walk_decode_symbol(*a, **statics, covered=True)
+        ref = _walk_batch_symbol_impl(*a, **statics)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+        assert (out.cpu().numpy() == syms).all()
 
 
 @in_child
@@ -98,7 +151,7 @@ def test_wrapper_rejects_bad_tensors(cuda_device):
     from repro_torch.kernels.rans_decode.rans_decode import walk_decode_pointer
     syms, model, enc, batch = _content(1, 4_000, 32, 11, 5)
     arrs = pad_split_arrays(batch, batch.k.shape[0], cuda_device)
-    words = torch.as_tensor(enc.stream.astype(np.int32), device=cuda_device)
+    words = _int16(enc.stream, cuda_device)
     args = [words, *_luts(model, True, cuda_device),
             *(arrs[f] for f in SPLIT_FIELDS)]
     statics = dict(n_bits=11, ways=32, n_steps=batch.n_steps,
@@ -109,12 +162,20 @@ def test_wrapper_rejects_bad_tensors(cuda_device):
         walk_decode_pointer(*bad, **statics)
     with pytest.raises(ValueError):
         walk_decode_pointer(*args, **{**statics, "ways": 48})
+    bad = list(args)
+    bad[0] = words.to(torch.int32)           # 16-bit words only
+    with pytest.raises(ValueError, match="int16"):
+        walk_decode_pointer(*bad, **statics)
+    bad[0] = words[1:]                       # not 16-byte aligned
+    with pytest.raises(ValueError, match="aligned"):
+        walk_decode_pointer(*bad, **statics)
 
 
 @in_child
 def test_service_decodes_through_the_kernels(cuda_device):
     """Both layouts through DecodeService on the card: outputs equal the
     input symbols and only kernel launches served them."""
+    import torch
     from repro_torch.core import recoil
     from repro_torch.core.vectorized import encode_interleaved_fast
     from repro_torch.kernels.rans_decode.rans_decode import (
@@ -145,6 +206,8 @@ def test_service_decodes_through_the_kernels(cuda_device):
     assert walk_decode_pointer.launches - p0 == 4
     assert walk_decode_pointer.plain_calls + \
         walk_decode_symbol.plain_calls == plain0
+    assert svc.content("a").stream.words.dtype == torch.int16
+    assert svc.content("a").stream.by_symbol.dtype == torch.int16
 
 
 @in_child
@@ -159,3 +222,31 @@ def test_session_defaults_to_the_kernels(cuda_device):
     assert (out.cpu().numpy() == syms).all()
     with pytest.raises(ValueError):
         DecoderSession(model, impl="torch")
+
+
+@in_child
+def test_plans_of_one_key_decode_their_own_sizes(cuda_device):
+    """Two requests that share a plan key (one launcher) but differ in
+    n_symbols: each output has its own length and equals its symbols."""
+    from repro_torch.core import recoil
+    from repro_torch.core.engine import DecoderSession
+    from repro_torch.core.vectorized import WalkBatch, encode_interleaved_fast
+    syms, model, _, _ = _content(21, 3_000, 32, 11, 8)
+    sess = DecoderSession(model)
+
+    def prepare(n):
+        e = encode_interleaved_fast(syms[:n], model)
+        rp = recoil.plan_splits(e, 8)
+        batch = WalkBatch.from_splits(
+            recoil.build_split_states(rp, e.final_states), 32)
+        return sess.prepare(batch, e.stream, n)
+
+    first = prepare(3_000)
+    second = next(p for p in map(prepare, range(2_990, 2_700, -10))
+                  if p.key == first.key)
+    for plan in (first, second):
+        assert plan.covered
+        out = sess.execute(plan)
+        assert out.shape == (plan.n_symbols,)
+        assert (out.cpu().numpy() == syms[:plan.n_symbols]).all()
+    assert (sess.stats.compiles, sess.stats.cache_hits) == (1, 1)

@@ -196,3 +196,122 @@ def test_session_device_and_impl_rules():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DecoderSession(tm)
+
+
+@pytest.mark.parametrize("n_words", [3_000, 70_000])
+@in_child
+def test_with_symbol_layout_is_int16_at_any_word_count(n_words):
+    """Every permutation entry is a 16-bit word, so the port stores it as
+    int16 at any stream length, where the reference widens to u32 at 2^16
+    words; read unsigned, it equals the reference's host oracle and the
+    reference's own ``with_symbol_layout``.  The stream itself is int16 on
+    the device too."""
+    import torch
+    from repro.core.vectorized import words_by_symbol_host as j_wbs
+    from repro_torch.core.engine import DecoderSession, with_symbol_layout
+    rng = np.random.default_rng(n_words)
+    n_symbols = 2 * n_words + 17
+    words = rng.integers(0, 1 << 16, size=n_words).astype(np.uint16)
+    k_of_word = np.sort(rng.choice(n_symbols, size=n_words, replace=False))
+    jm = _model(32)
+    ts = DecoderSession(_port_model(jm), device="cpu")
+    ds = ts.upload_stream(words)
+    assert ds.words.dtype == torch.int16
+    np.testing.assert_array_equal(
+        ds.words[:n_words].numpy().view(np.uint16), words)
+    ds = with_symbol_layout(ds, k_of_word, n_symbols)
+    assert ds.by_symbol.dtype == torch.int16
+    got = ds.by_symbol.numpy().view(np.uint16).astype(np.uint32)
+    np.testing.assert_array_equal(got[:n_symbols],
+                                  j_wbs(words, k_of_word, n_symbols))
+    jds = j_with_symbol_layout(
+        JSession(jm, impl="jnp").upload_stream(words), k_of_word, n_symbols)
+    want = np.asarray(jds.by_symbol).astype(np.uint32) & 0xFFFF
+    assert ds.sym_bucket == jds.sym_bucket
+    np.testing.assert_array_equal(got, want)
+
+
+@in_child
+def test_coverage_flag():
+    """``DecodePlan.covered`` is true when the real rows' kept windows tile
+    the output, and then the plain output holds no -1; a plan with a row
+    removed, and a fused batch with gaps between its windows, are not
+    covered."""
+    from repro_torch.core import recoil
+    from repro_torch.core.engine import (DecoderSession, concat_walk_batches,
+                                         kept_windows_tile)
+    from repro_torch.core.vectorized import WalkBatch, encode_interleaved_fast
+    jm = _model(32)
+    tm = _port_model(jm)
+    rng = np.random.default_rng(41)
+    syms = np.minimum(rng.exponential(40.0, size=6_000).astype(np.int64), 255)
+    enc = encode_interleaved_fast(syms, tm)
+    full = recoil.plan_splits(enc, 40)
+    ts = DecoderSession(tm, device="cpu")
+    ds = ts.upload_stream(enc.stream)
+    batches = {}
+    for threads in (1, 3, 8, 16, 40):
+        rp = recoil.combine_plan(full, threads)
+        batch = WalkBatch.from_splits(
+            recoil.build_split_states(rp, enc.final_states), 32)
+        plan = ts.prepare(batch, ds, rp.n_symbols)
+        assert plan.covered and plan.args[4].shape == batch.k.shape
+        out = ts.execute(plan).numpy()
+        assert (out >= 0).all()
+        np.testing.assert_array_equal(out, syms)
+        batches[threads] = batch
+    b = batches[16]
+    fields = ("k", "y", "x0", "q0", "g_hi", "start", "stop", "keep_lo",
+              "keep_hi", "out_base")
+    for drop in (0, 7, b.k.shape[0] - 1):
+        keep = np.arange(b.k.shape[0]) != drop
+        cut = WalkBatch(**{f: getattr(b, f)[keep] for f in fields},
+                        n_steps=b.n_steps, ways=32)
+        assert not kept_windows_tile(cut, len(syms))
+        plan = ts.prepare(cut, ds, len(syms))
+        assert not plan.covered
+        assert (ts.execute(plan).numpy() == -1).any()
+    n = len(syms)
+    assert kept_windows_tile(
+        concat_walk_batches([b, batches[3]], [0, n]), 2 * n)
+    gapped = concat_walk_batches([b, batches[3]], [0, n + 100])
+    assert not kept_windows_tile(gapped, 2 * n + 100)
+    plan = ts.prepare(gapped, ds, 2 * n + 100)
+    assert not plan.covered
+    out = ts.execute(plan).numpy()
+    assert (out[n:n + 100] == -1).all()
+    np.testing.assert_array_equal(out[n + 100:], syms)
+
+
+@in_child
+def test_plans_of_one_key_decode_their_own_sizes():
+    """Two requests that share a plan key, and so one launcher bound to the
+    key's bucketed sizes, but differ in n_symbols: each output has its own
+    length and symbols, and the counters equal the reference's."""
+    from repro_torch.core.engine import DecoderSession
+    jm = _model(32)
+    js = JSession(jm, impl="jnp")
+    ts = DecoderSession(_port_model(jm), device="cpu")
+    from repro_torch.core import convert
+    plans = []
+    for seed, n in ((21, 3_000), (22, 2_900)):
+        rng = np.random.default_rng(seed)
+        syms = np.minimum(rng.exponential(40.0, size=n).astype(np.int64),
+                          255)
+        enc = j_encode(syms, jm)
+        rp = j_recoil.plan_splits(enc, 8)
+        jb = JBatch.from_splits(
+            j_recoil.build_split_states(rp, enc.final_states), 32)
+        tb = convert.batch_from_arrays(convert.batch_arrays(jb), jb.n_steps,
+                                       jb.ways)
+        plan = ts.prepare(tb, enc.stream, n)
+        out = ts.execute(plan).numpy()
+        assert out.shape == (n,)
+        np.testing.assert_array_equal(out, syms)
+        np.testing.assert_array_equal(
+            out, np.asarray(js.decode(rp, enc.stream, enc.final_states)))
+        plans.append(plan)
+    assert plans[0].key == plans[1].key
+    assert plans[0].statics == plans[1].statics
+    assert ts.stats.snapshot() == js.stats.snapshot()
+    assert (ts.stats.compiles, ts.stats.cache_hits) == (1, 1)

@@ -119,3 +119,28 @@ def test_register_validates_content():
     with pytest.raises(ValueError, match="rANS invariant"):
         tsvc.register("bad", c.plan, c.stream.host,
                       np.zeros_like(c.final_states))
+
+
+@in_child
+def test_fused_permutation_stays_int16():
+    """A symbol-layout fused group concatenates the int16 permutations as
+    they are (the reference upcasts to u32) and int16 streams beside them;
+    it decodes equal to the reference, its plan is covered, and the
+    counters stay equal."""
+    import torch
+    payloads, jsvc, tsvc = _setup()
+    reqs = [("c0", 8), ("c1", 8), ("c0", 3), ("c1", 16)]
+    j_tickets = [jsvc.submit(n, th) for n, th in reqs]
+    t_tickets = [tsvc.submit(n, th) for n, th in reqs]
+    jsvc.flush()
+    tsvc.flush()
+    for (name, _), jt, tt in zip(reqs, j_tickets, t_tickets):
+        t_out = tt.result().numpy()
+        np.testing.assert_array_equal(t_out, np.asarray(jt.result()))
+        np.testing.assert_array_equal(t_out, payloads[name])
+    (plan, _, _), = tsvc._fused_plans.values()
+    assert plan.layout == "symbol" and plan.args[0].dtype == torch.int16
+    assert plan.covered
+    assert all(tsvc.content(n).stream.words.dtype == torch.int16
+               for n in payloads)
+    assert _counters(tsvc) == _counters(jsvc)

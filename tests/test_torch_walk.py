@@ -20,6 +20,7 @@ from repro.core import conventional as j_conventional
 from repro.core import recoil as j_recoil
 from repro.core.rans import RansParams as JParams, StaticModel as JModel
 from repro.core.vectorized import (WalkBatch as JBatch,
+                                   _walk_batch_jit,
                                    _walk_batch_symbol_jit,
                                    decode_conventional_fast as j_conv_fast,
                                    decode_recoil_fast as j_recoil_fast,
@@ -202,3 +203,41 @@ def test_wrappers_take_the_plain_walk_only_for_cpu_tensors():
     assert walk_decode_pointer.launches == 0
     assert walk_decode_symbol.launches == 0
     reset_counts()
+
+
+@pytest.mark.parametrize("ways", [8, 32, 128])
+@in_child
+def test_pointer_walk_on_int16_stream(ways):
+    """The plain pointer walk on the int16 stream the card stores equals the
+    same walk on an int32 stream and the reference ``_walk_batch_jit``."""
+    import torch
+    from repro_torch.core.vectorized import _walk_batch_impl
+    from repro_torch.kernels.rans_decode.ops import _luts
+    syms, jm, enc = _make(n=9_000, seed=ways, ways=ways)
+    plan, jb, tb = _batches(enc, 9)
+    assert int(enc.stream.max()) >= 1 << 15    # words with the top bit set
+    n = plan.n_symbols
+    statics = dict(n_bits=jm.params.n_bits, ways=ways, n_steps=jb.n_steps,
+                   n_symbols=n)
+    j_out, j_qf = _walk_batch_jit(
+        jnp.asarray(enc.stream.astype(np.uint32)), *j_luts(jm, True),
+        *(jnp.asarray(getattr(jb, f)) for f in (
+            "k", "y", "x0", "q0", "g_hi", "start", "stop", "keep_lo",
+            "keep_hi", "out_base")), **statics)
+
+    def t(a):
+        a = np.ascontiguousarray(a)
+        return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                                else a.astype(np.int32))
+
+    split = (t(tb.k), t(tb.y), t(tb.x0), t(tb.q0), t(tb.g_hi), t(tb.start),
+             t(tb.stop), t(tb.keep_lo), t(tb.keep_hi), t(tb.out_base))
+    luts = _luts(_port_model(jm), True, "cpu")
+    outs = [_walk_batch_impl(torch.from_numpy(words), *luts, *split,
+                             **statics)
+            for words in (enc.stream.astype(np.uint16).view(np.int16),
+                          enc.stream.astype(np.int32))]
+    for out, qf in outs:
+        np.testing.assert_array_equal(out.numpy(), np.asarray(j_out))
+        np.testing.assert_array_equal(qf.numpy(), np.asarray(j_qf))
+        np.testing.assert_array_equal(out.numpy(), syms)
