@@ -6,35 +6,54 @@ Drives only the port (``src/repro_torch``) — nothing of JAX or of the JAX
 package — in five phases, each failing loudly with a non-zero exit:
 
   1. device  — the card's name, count, and ``nvidia-smi`` name/power limit;
-  2. build   — one ``nvcc`` for the kernel source, with its ``-Xptxas -v``
-               register and shared-memory report;
-  3. kernels — each walk kernel against its plain torch version on the card
-               over W {8..128}, n_bits {11, 16}, packed and three-table
+  2. build   — one ``nvcc`` per kernel source, started together, with each
+               ``-Xptxas -v`` register and shared-memory report, and the
+               instructions of one encode step's state chain, read from the
+               encode kernel's SASS;
+  3. kernels — each kernel against its plain torch version on the card.
+               Walks: W {8..128}, n_bits {11, 16}, packed and three-table
                slot tables, on int16 streams and permutations: many short
                splits, and a few long ones that cross hundreds of ring
                refills, read down to word 0 and run on streams whose length
                is not a multiple of 8, with inert padding rows under
-               ``covered``.  Outputs must be equal;
+               ``covered``.  Encode scan: W {8..128} x n_bits {11, 12, 16},
+               lengths under W and off a multiple of W, resume lead slots
+               with a random x0, a 4096-symbol alphabet at n = 12, an
+               adaptive context map, and a zero-frequency symbol that must
+               raise the flag.  Split planner: also against the port's
+               ``heuristic.plan_split_offsets``, on a case that needs window
+               expansion and on plans of up to 2176 threads.  Outputs must
+               be equal;
   4. main    — the content-delivery path at the paper's size (§5.1 Table 4:
                10 MB assets; Table 3 codec n = 11, W = 32; a 2176-thread
-               split plan).  Two assets are encoded on the host; one is
-               registered with its emission log (symbol layout), the other
-               through the wire container with none (pointer layout); the
-               DecodeService on the card decodes each at 16, 128 and 2176
-               threads and a fused group of 8 mixed requests.  Every result
-               must equal the input symbols, both kernels must have launched,
-               the plain walk must have served nothing, every single-content
-               plan must be covered (no -1 fill) and the fused plan's
-               coverage must be what an independent check of its windows
-               says;
-  5. times   — each kernel at the main path's 16-, 128- and 2176-thread
+               split plan), starting from raw symbols on the card.  One asset
+               enters through ``DecodeService.ingest`` (symbol layout); the
+               other is encoded and split-planned by the port's
+               ``EncoderSession`` on the card, packed into the wire container,
+               parsed and registered with no emission log (pointer layout).
+               Both are held against the host encoder and ``plan_splits``
+               (stream words, emission log, final states, every split point,
+               permutation), then decoded at 16, 128 and 2176 threads and in
+               a fused group of 8 mixed requests.  ``extend`` (9 MB + 1 MB)
+               must equal the full ingest and the reference's extend points,
+               and ``ingest_batch`` of three contents the three single
+               ingests.  Every decode must equal the input symbols, all four
+               kernels must have launched, no plain version may have served,
+               every single-content plan must be covered (no -1 fill) and the
+               fused plan's coverage must be what an independent check of its
+               windows says;
+  5. times   — each walk kernel at the main path's 16-, 128- and 2176-thread
                plans: the executor's call, the one the main path makes,
                checked against the input symbols and against its plain
                version on the same arguments (output and final pointers),
                then its CUDA-event device time, per-step time and the bound;
                a separate line gives a model of the bytes the rings copy
                (from their geometry, not a counter); at 2176 threads, the
-               plain version's time.
+               plain version's time.  Then the warm ``ingest`` latency of
+               each 10 MB asset and the ``extend`` latency of the 1 MB delta
+               (host clock around the call and a synchronize, median of 5),
+               and each ingest kernel's CUDA-event device time at the main
+               path's shapes beside its bound and its plain version's time.
 
 Prints, before the last line, the kernel table as one JSON object and the
 card's ``nvidia-smi`` line; the last line is the JSON run summary.  Exits
@@ -43,8 +62,10 @@ non-zero without a result when no CUDA device is available.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -70,11 +91,49 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 # compares, renormalization shift/or, the keep test).
 INT32_OPS_PER_S = 67e12
 OPS_PER_SYMBOL = 12
-KERNEL_SOURCE = "src/repro_torch/kernels/rans_decode/csrc/rans_walk.cu"
+SOURCES = {
+    "walk_pointer": "src/repro_torch/kernels/rans_decode/csrc/rans_walk.cu",
+    "walk_symbol": "src/repro_torch/kernels/rans_decode/csrc/rans_walk.cu",
+    "encode_scan": "src/repro_torch/kernels/rans_encode/csrc/rans_encode.cu",
+    "plan_splits": "src/repro_torch/kernels/rans_encode/csrc/rans_encode.cu",
+}
 REPLACES = {
     "walk_pointer": "src/repro/kernels/rans_decode/rans_decode.py:93",
     "walk_symbol": "src/repro/kernels/rans_decode/rans_decode.py:153",
+    "encode_scan": "src/repro/core/encode/ops.py:78",
+    "plan_splits": "src/repro/core/encode/ops.py:227",
 }
+INGEST_REPS = 5
+# The ingest path's assets: the first 9 MB of one asset is ingested and then
+# extended by the last 1 MB.
+EXTEND_AT = 9 * MB
+WINDOW = 96                   # the Def-4.1 half-window (heuristic default)
+# The encode's chain.  A way's steps are sequential (each step's state is
+# the next step's input), so a content takes at least G times the dependent
+# latency of one step's state update: the renorm compare, the select, the
+# division by f and the multiply-add.  The instructions on that chain are
+# read from encode_scan_kernel's SASS: those of its main loop (which holds
+# ENCODE_AHEAD steps) on the state register's loop-carried dependence
+# chain.  Loads, stores, index arithmetic, the loop test and the half of the
+# division that depends on f alone (its reciprocal) are off the chain.
+# Each instruction on it counts CYCLES_PER_DEPENDENT_OP cycles (the CUDA C++
+# Programming Guide's figure for a dependent arithmetic instruction; some,
+# such as IMAD.HI, take longer, so the bound is low) at the top SM clock.
+ENCODE_AHEAD = 8
+ENCODE_SASS_KERNEL = "encode_scan_kernelILb0ELb1E"   # static, table in smem
+CYCLES_PER_DEPENDENT_OP = 4
+# The planner's chain, a model of the function (heuristic.plan_split_offsets,
+# a slot whose first round finds a candidate).  Every slot waits for the
+# c_prev and min_q of the one before, and a slot's critical path is at least
+# PLAN_SLOT_OPS dependent operations -- T (subtract, add, divide), the target,
+# the center read, the window's subtract and max and the candidate's index,
+# its k_of_word read, the group quotient and the way's select, the last[]
+# read, k = g * W + j, h (subtract, abs, add), the winner's c -- plus a
+# min/max over the W ways (log2 W levels) and an argmin over the round's
+# 2w + 1 candidates (ceil(log2(2w + 1)) levels), each operation
+# CYCLES_PER_DEPENDENT_OP cycles.  A memory read counts as one operation,
+# so the model is loose.
+PLAN_SLOT_OPS = 17
 # Ring geometry of csrc/rans_walk.cu at W = 32 (words of one chunk, chunks
 # of one ring), for the model of the bytes the rings copy.
 POINTER_CHUNK, SYMBOL_ROWS, RING_CHUNKS = 32, 8, 4
@@ -89,12 +148,15 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int) -> tuple[float, float]:
-    """Mean device time of ``fn()`` over ``reps`` warm calls, by CUDA events
-    around the whole run, queued behind a device sleep so that the events
-    see the device's time and not the host's; and the host's mean time to
-    enqueue one call (ms)."""
-    fn()
+def cuda_ms(fn, reps: int, warm: bool = True) -> tuple[float, float]:
+    """Mean device time of ``fn()`` over ``reps`` calls (after one warm-up
+    call unless ``warm`` is False), by CUDA events around the whole run,
+    queued behind a device sleep so that the events see the device's time
+    and not the host's; and the host's mean time to enqueue one call (ms).
+    A call that waits on the device (a plain version reading values to the
+    host) is timed whole."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -126,14 +188,127 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build(rd) -> None:
+_NO_DEST = {"STG", "STS", "STL", "ST", "RED", "BRA", "EXIT", "BAR", "BSYNC",
+            "BSSY", "WARPSYNC", "NOP", "MEMBAR", "CALL", "RET", "DEPBAR",
+            "YIELD", "CCTL", "ERRBAR", "FENCE"}
+_SASS_REG = re.compile(r"(?<![\w.])(U?[RP])(\d+)(\.64)?")
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                         r"([A-Z0-9_.]+)\s*([^;]*);")
+
+
+def _sass_regs(operand: str, width: int = 1) -> list:
+    """Registers an operand names: ``R5.64`` and a ``width`` > 1 also
+    name the registers after it."""
+    out = []
+    for kind, num, wide in _SASS_REG.findall(operand):
+        n = 2 if wide else width
+        out += [f"{kind}{int(num) + i}" for i in range(n)]
+    return out
+
+
+def _sass_instructions(body: str) -> list:
+    """``(address, guarded, opcode, dests, sources)`` of each instruction:
+    the first operand is written (with the predicates right after it: the
+    carry and compare outputs; a PLOP3 writes two), a guard predicate is
+    read, and wide operations write register pairs."""
+    instrs = []
+    for at, guard, opcode, rest in _SASS_INSTR.findall(body):
+        ops = [o.strip() for o in rest.split(",")] if rest.strip() else []
+        base = opcode.split(".")[0]
+        srcs = _sass_regs(guard) if guard else []
+        if base in _NO_DEST or not ops:
+            n_dest = 0
+        elif base == "PLOP3":
+            n_dest = 2
+        else:
+            n_dest = 1
+            while n_dest < len(ops) and re.fullmatch(r"U?P(\d|T)",
+                                                     ops[n_dest]):
+                n_dest += 1
+        width = (4 if ".128" in opcode else 2 if ".64" in opcode
+                 or ".WIDE" in opcode or base == "CS2R" else 1)
+        dests = [r for i, o in enumerate(ops[:n_dest])
+                 for r in _sass_regs(o, width if i == 0 else 1)]
+        for i, o in enumerate(ops[n_dest:], n_dest):
+            wide = ".WIDE" in opcode and i == len(ops) - 1
+            srcs += _sass_regs(o, 2 if wide else 1)
+        instrs.append((int(at, 16), bool(guard), opcode, dests, srcs))
+    return instrs
+
+
+def _loop_chain(sass: str, kernel: str) -> tuple[int, list]:
+    """The main loop of ``kernel`` (a substring of its mangled name) in
+    ``cuobjdump -sass`` output -- the span of its widest backward branch,
+    read in address order, the path that runs every unrolled step -- and
+    its longest loop-carried dependence chain: for each register the loop
+    reads before it writes it and writes again, the longest path of
+    dependent instructions from its value at the loop's head to its value
+    at the loop's end.  Returns the loop's instruction count and the
+    opcodes of the longest such chain."""
+    for body in sass.split("Function : ")[1:]:
+        if kernel in body.split("\n", 1)[0]:
+            break
+    else:
+        fail(f"no {kernel} in the SASS")
+    instrs = _sass_instructions(body)
+    back = [(int(at, 16), int(to, 16)) for at, to in re.findall(
+        r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?BRA\s+0x([0-9a-f]+)", body)]
+    back = [(at, to) for at, to in back if to < at]
+    if not back:
+        fail(f"no loop of {kernel} found in the SASS")
+    at, to = max(back, key=lambda p: p[0] - p[1])
+    loop = [i for i in instrs if to <= i[0] <= at]
+    written, carried = set(), []
+    for _, _, _, dests, srcs in loop:
+        carried += [r for r in srcs if r not in written and r not in carried]
+        written.update(dests)
+    best: list = []
+    for seed in (r for r in carried if r in written):
+        # depth[reg] = the chain (a list of loop indices) that produced it.
+        depth = {seed: []}
+        for i, (_, guarded, _, dests, srcs) in enumerate(loop):
+            chains = [depth[r] for r in srcs if r in depth]
+            if not chains:
+                if not guarded:
+                    for r in dests:
+                        depth.pop(r, None)
+                continue
+            new = max(chains, key=len) + [i]
+            for r in dests:
+                if not (guarded and len(depth.get(r, ())) > len(new)):
+                    depth[r] = new
+        if len(depth.get(seed, ())) > len(best):
+            best = depth[seed]
+    return len(loop), [loop[i][2] for i in best]
+
+
+def phase_build(libraries) -> float:
+    """Builds every kernel library at once (one nvcc each), loads them and
+    returns the instructions on one encode step's state chain."""
     t = time.perf_counter()
-    rd.build_library()
-    rd.load_library()
-    log(f"[build] nvcc + load {time.perf_counter() - t:.1f} s")
-    for line in rd.ptxas_report().splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
-            log("[build] " + line.strip())
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        for fut in [pool.submit(lib.build) for lib in libraries]:
+            fut.result()
+    for lib in libraries:
+        lib.load()
+    log(f"[build] {len(libraries)} x nvcc (in parallel) + load "
+        f"{time.perf_counter() - t:.1f} s")
+    for lib in libraries:
+        for line in lib.ptxas_report().splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                log("[build] " + line.strip())
+    from repro_torch.kernels.build import nvcc
+    cuobjdump = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(libraries[1].path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    n_loop, chain = _loop_chain(sass, ENCODE_SASS_KERNEL)
+    step = len(chain) / ENCODE_AHEAD
+    log(f"[build] encode_scan_kernel main loop: {n_loop} SASS instructions "
+        f"for {ENCODE_AHEAD} steps; the state's dependence chain: "
+        f"{len(chain)} instructions, {step:g} a step; the last step's: "
+        f"{' '.join(chain[-round(step):])}")
+    return step
 
 
 def _content(seed, n, ways, n_bits, n_splits):
@@ -231,6 +406,109 @@ def phase_kernels(dev, errs) -> None:
         f"max |err| {errs}")
 
 
+def _encode_args(syms, model, dev, head=0, ctx=None, x0=None):
+    from repro_torch.core.encode.executors import encode_scan_args
+    return encode_scan_args(syms, model.f, model.F, model.params.ways, dev,
+                            head, ctx, x0)
+
+
+def phase_encode_kernels(dev, errs) -> None:
+    from repro_torch.core.adaptive import ContextModel
+    from repro_torch.core.rans import RansParams, StaticModel
+    from repro_torch.kernels.rans_encode import rans_encode as re_
+    rng = np.random.default_rng(7)
+    cases = []
+    for ways in (8, 16, 32, 64, 128):
+        for n_bits in (11, 12, 16):
+            for n, head in ((5, 0), (3_001, 3_001 % ways),
+                            (ways * 40, ways - 1)):
+                syms = np.minimum(
+                    rng.exponential(30.0, size=n).astype(np.int64), 255)
+                model = StaticModel.from_symbols(
+                    np.concatenate([syms, np.arange(256)]), 256,
+                    RansParams(n_bits=n_bits, ways=ways))
+                x0 = rng.integers(1 << 16, 1 << 32, size=ways,
+                                  dtype=np.uint64).astype(np.uint32)
+                cases.append((f"W={ways} n={n_bits} N={n} head={head}",
+                              _encode_args(syms, model, dev, head, None, x0),
+                              n_bits, False))
+    wide = rng.integers(0, 4096, size=20_000)
+    m12 = StaticModel.from_symbols(np.concatenate([wide, np.arange(4096)]),
+                                   4096, RansParams(n_bits=12, ways=32))
+    cases.append(("4096-symbol alphabet", _encode_args(wide, m12, dev), 12,
+                  False))
+    n = 9_003
+    ctx = (np.arange(n) % 4).astype(np.int32)
+    cm = ContextModel.from_scale_table([3.0, 8.0, 20.0, 60.0], ctx, 256,
+                                       RansParams(n_bits=11, ways=32))
+    syms = np.minimum(rng.exponential(30.0, size=n).astype(np.int64), 255)
+    cases.append(("adaptive", _encode_args(syms, cm, dev, ctx=ctx), 11,
+                  False))
+    skew = np.minimum(rng.exponential(3.0, size=2_000).astype(np.int64), 255)
+    mz = StaticModel.from_symbols(skew, 256, RansParams(n_bits=11, ways=32))
+    missing = int(np.flatnonzero(mz.f == 0)[-1])
+    skew[777] = missing
+    cases.append(("zero frequency", _encode_args(skew, mz, dev), 11, True))
+    for name, args, n_bits, flagged in cases:
+        got = re_.encode_scan(*args, n_bits=n_bits)
+        want = re_.encode_scan_plain(*args, n_bits=n_bits)
+        for g, w in zip(got, want):
+            _compare("encode_scan", g, w, errs)
+        if bool(got[4][0]) != flagged:
+            fail(f"encode_scan zero-frequency flag wrong on {name}")
+    torch.cuda.synchronize()
+    log(f"[kernels] encode_scan: {len(cases)} cases (W 8..128 x n 11/12/16 "
+        "x lengths under W and off a multiple of W, lead slots and random "
+        "x0; 4096-symbol alphabet; adaptive; zero frequency flagged) equal "
+        f"the plain version; max |err| {errs['encode_scan']}")
+
+
+def phase_plan_kernels(dev, errs) -> None:
+    from repro_torch.core import heuristic
+    from repro_torch.core.encode import ops
+    from repro_torch.core.rans import RansParams, StaticModel
+    from repro_torch.kernels.rans_encode import rans_encode as re_
+    cases = ((2, 4_000, 32, 100, 2.0), (5, 30_000, 64, 2_176, 40.0),
+             (6, 20_011, 8, 16, 40.0), (8, 300_000, 32, 2_176, 40.0),
+             (9, 12_007, 128, 8, 40.0))
+    for seed, n, ways, n_splits, lam in cases:
+        rng = np.random.default_rng(seed)
+        syms = np.minimum(rng.exponential(lam, size=n).astype(np.int64), 255)
+        model = StaticModel.from_symbols(syms, 256,
+                                         RansParams(n_bits=11, ways=ways))
+        sym, active, f, F, x0 = _encode_args(syms, model, dev)
+        words, masks, ys, _, _ = re_.encode_scan(sym, active, f, F, x0,
+                                                 n_bits=11)
+        csum, last, n_words = ops.emission_layout(masks)
+        nw = int(n_words[0])
+        _, kw, yw = ops.compact_emissions(words, ys, masks, csum, nw)
+        args = (kw, csum, last, ys, n_words.int(),
+                torch.tensor([n], dtype=torch.int32, device=dev),
+                torch.tensor([n_splits], dtype=torch.int32, device=dev))
+        st = dict(window=WINDOW, n_slots=n_splits - 1)
+        got = re_.plan_splits(*args, **st)
+        for g, w in zip(got, re_.plan_splits_plain(*args, **st)):
+            _compare("plan_splits", g, w, errs)
+        index = heuristic.EmissionIndex(kw[0].cpu().numpy(),
+                                        yw[0].cpu().numpy().view(np.uint32),
+                                        ways)
+        offsets, ks, ys_h = heuristic.plan_split_offsets(
+            index, n, n_splits, window=WINDOW)
+        found = got[0][0].cpu().numpy()
+        if not (found.sum() == len(offsets)
+                and np.array_equal(got[1][0].cpu().numpy()[found], offsets)
+                and np.array_equal(got[2][0].cpu().numpy()[found], ks)
+                and np.array_equal(
+                    got[3][0].cpu().numpy()[found].view(np.uint32), ys_h)):
+            fail(f"plan_splits differs from heuristic.plan_split_offsets "
+                 f"(seed {seed}, {n} symbols, W={ways}, {n_splits} splits)")
+    torch.cuda.synchronize()
+    log(f"[kernels] plan_splits: {len(cases)} cases (a window-expansion "
+        "trigger: seed 2, lambda 2, 4000 symbols, 100 splits; W 8..128; up "
+        "to 2176 splits) equal the plain version and "
+        f"heuristic.plan_split_offsets; max |err| {errs['plan_splits']}")
+
+
 def _windows_tile(plan) -> bool:
     """Independent check of ``plan.covered``: the rows' kept windows, empty
     ones aside, laid end to end cover [0, n_symbols)."""
@@ -260,32 +538,101 @@ def _assets():
     return {"expo": expo, "zipf": zipf}, model
 
 
-def phase_main(dev, rd):
+def _same_plan(got, want) -> bool:
+    return (got.n_symbols, got.n_words, len(got.points)) == \
+        (want.n_symbols, want.n_words, len(want.points)) and all(
+            a.offset == b.offset and np.array_equal(a.k, b.k)
+            and np.array_equal(a.y, b.y)
+            for a, b in zip(got.points, want.points))
+
+
+def _host_words(t, n) -> np.ndarray:
+    return t[:n].cpu().numpy().view(np.uint16)
+
+
+def _same_ingest(a, b) -> bool:
+    """Two contents (ingest results or service records) are the same:
+    stream words, final states, split points and permutation."""
+    return (a.stream.n_words == b.stream.n_words
+            and torch.equal(a.stream.words, b.stream.words)
+            and torch.equal(a.stream.by_symbol, b.stream.by_symbol)
+            and np.array_equal(a.final_states, b.final_states)
+            and _same_plan(a.plan, b.plan))
+
+
+def _suffix_points(enc, n0: int, d: int, n_splits: int, ways: int):
+    """The reference's extend points from the host encoding of the whole
+    content: the suffix's emissions are the whole stream's at symbols
+    >= n0 (each way's chain is the same), planned by Def 4.1 in the suffix
+    grid's coordinates (origin (n0 // W) * W, offsets after the old words)
+    and moved back."""
+    from repro_torch.core import heuristic
+    origin = n0 - n0 % ways
+    old_n = int(np.searchsorted(enc.k_of_word, n0))
+    index = heuristic.EmissionIndex(enc.k_of_word[old_n:] - origin,
+                                    enc.y_of_word[old_n:], ways)
+    offsets, ks, ys = heuristic.plan_split_offsets(
+        index, n0 % ways + d, n_splits, window=WINDOW)
+    return [(int(q) + old_n, k + origin, y) for q, k, y in zip(offsets, ks,
+                                                                 ys)]
+
+
+def phase_main(dev, rd, re_):
     from repro_torch.core import container, recoil
-    from repro_torch.core.vectorized import encode_interleaved_fast
+    from repro_torch.core.encode import EncoderSession
+    from repro_torch.core.vectorized import (encode_interleaved_fast,
+                                             words_by_symbol_host)
     from repro_torch.runtime.serve import DecodeService
     assets, model = _assets()
+    # The host reference: the port's host encoder and numpy planner.
     t = time.perf_counter()
     enc = {k: encode_interleaved_fast(v, model) for k, v in assets.items()}
     t_enc = time.perf_counter() - t
     t = time.perf_counter()
     plans = {k: recoil.plan_splits(e, PLAN_THREADS) for k, e in enc.items()}
     t_plan = time.perf_counter() - t
-    wire = container.pack_recoil(enc["zipf"], model, plans["zipf"])
-    parsed = container.parse(wire, model.params)
-    log(f"[main] host encode {t_enc:.2f} s, plan {t_plan:.2f} s for 2 x 10 MB; "
-        f"words {enc['expo'].n_words} + {enc['zipf'].n_words}; "
-        f"{PLAN_THREADS}-thread plans; zipf container {len(wire)} B")
+    log(f"[main] host reference: encode {t_enc:.2f} s, plan {t_plan:.2f} s "
+        f"for 2 x 10 MB; words {enc['expo'].n_words} + "
+        f"{enc['zipf'].n_words}; {PLAN_THREADS}-thread plans")
     want = {k: torch.as_tensor(v.astype(np.int32), device=dev)
             for k, v in assets.items()}
+    raw = {k: v.astype(np.uint8) for k, v in assets.items()}   # the files
 
     rd.reset_counts()
+    re_.reset_counts()
     svc = DecodeService(model, device=dev)
-    svc.register("expo", plans["expo"], enc["expo"].stream,
-                 enc["expo"].final_states, model=model,
-                 emission_log=enc["expo"].k_of_word)
+    svc.ingest("expo", raw["expo"], PLAN_THREADS)
+    coder = EncoderSession(model, device=dev)
+    zres = coder.ingest(raw["zipf"], PLAN_THREADS)
+    # The emission logs, from the card, for the comparison with the host.
+    logs = {k: coder.encode(raw[k]) for k in assets}
+    wire = container.pack_recoil(logs["zipf"], model, zres.plan)
+    parsed = container.parse(wire, model.params)
     svc.register("zipf", parsed.plan, parsed.stream, parsed.final_states,
                  model=parsed.model)
+    ingested = {"expo": svc.content("expo"), "zipf": zres}
+    for k in assets:
+        e, got = enc[k], ingested[k]
+        ok = (np.array_equal(_host_words(got.stream.words, e.n_words),
+                             e.stream)
+              and got.stream.n_words == e.n_words
+              and np.array_equal(got.final_states, e.final_states)
+              and _same_plan(got.plan, plans[k])
+              and np.array_equal(
+                  _host_words(got.stream.by_symbol, e.n_symbols),
+                  words_by_symbol_host(e.stream, e.k_of_word,
+                                       e.n_symbols).astype(np.uint16))
+              and all(np.array_equal(getattr(logs[k], f), getattr(e, f))
+                      for f in ("stream", "final_states", "k_of_word",
+                                "y_of_word")))
+        if not ok:
+            fail(f"{k}: the card's ingest differs from the host reference")
+    if not np.array_equal(parsed.stream, enc["zipf"].stream):
+        fail("zipf: the wire container's stream differs from the host's")
+    log(f"[main] both assets ingested on the card equal the host reference: "
+        f"stream words, k_of_word, y_of_word, final states, "
+        f"{len(plans['expo'].points)} + {len(plans['zipf'].points)} split "
+        f"points, permutation; zipf container {len(wire)} B")
     layouts = {k: svc.layout_for(k) for k in assets}
     if layouts != {"expo": "symbol", "zipf": "pointer"}:
         fail(f"unexpected layouts {layouts}")
@@ -300,19 +647,7 @@ def phase_main(dev, rd):
     for (name, th), tk in zip(reqs, tickets):
         if not torch.equal(tk.result(), want[name]):
             fail(f"fused {name} at {th} threads != input symbols")
-    torch.cuda.synchronize()
-    launches = {"walk_pointer": rd.walk_decode_pointer.launches,
-                "walk_symbol": rd.walk_decode_symbol.launches}
-    plain = (rd.walk_decode_pointer.plain_calls
-             + rd.walk_decode_symbol.plain_calls)
-    fills = rd.walk_decode_pointer.fills + rd.walk_decode_symbol.fills
-    stats = svc.stats.snapshot()
-    log(f"[main] layouts {layouts}; launches {launches}; plain walks {plain}; "
-        f"output fills {fills}; service {stats}")
-    if min(launches.values()) == 0 or plain != 0:
-        fail("the main path did not run on both kernels alone")
-    if stats["fused_dispatches"] != 1 or stats["pointer_plans"] < 4:
-        fail("the mixed group did not fuse into one pointer-layout dispatch")
+
     # Coverage: every single-content plan skips the fill; the fused plan's
     # flag is what an independent check of its windows says.
     singles = [svc.prepare_request(n, th) for th in THREADS for n in assets]
@@ -321,6 +656,7 @@ def phase_main(dev, rd):
     fused = [p for p, _, _ in svc._fused_plans.values()]
     if len(fused) != 1 or fused[0].covered != _windows_tile(fused[0]):
         fail("the fused plan's coverage differs from its windows")
+    fills = rd.walk_decode_pointer.fills + rd.walk_decode_symbol.fills
     if fills != sum(not p.covered for p in fused):
         fail(f"{fills} output fills on the main path, expected none for "
              "covered plans")
@@ -328,6 +664,67 @@ def phase_main(dev, rd):
         f"covered={fused[0].covered} ({fused[0].args[4].shape[0]} rows): "
         "no output fill on the main path")
 
+    # extend: the first 9 MB, then the last 1 MB.
+    expo = raw["expo"]
+    head_plan = svc.ingest("grown", expo[:EXTEND_AT], PLAN_THREADS)
+    grown = svc.extend("grown", expo[EXTEND_AT:])
+    full = coder.ingest(expo, PLAN_THREADS)
+    g = svc.content("grown")
+    m_suffix = 1 + -(-(head_plan.n_threads - 1) * (len(expo) - EXTEND_AT)
+                     // EXTEND_AT)
+    points = [(p.offset, p.k, p.y) for p in head_plan.points] + \
+        _suffix_points(enc["expo"], EXTEND_AT, len(expo) - EXTEND_AT,
+                       m_suffix, WAYS)
+    if not (g.stream.n_words == full.n_words
+            and torch.equal(g.stream.words, full.stream.words)
+            and torch.equal(g.stream.by_symbol, full.stream.by_symbol)
+            and np.array_equal(g.final_states, full.final_states)
+            and len(grown.points) == len(points)
+            and all(p.offset == q and np.array_equal(p.k, k)
+                    and np.array_equal(p.y, y)
+                    for p, (q, k, y) in zip(grown.points, points))):
+        fail("extend differs from the full ingest or the reference's points")
+    for th in THREADS:
+        if not torch.equal(svc.decode("grown", th), want["expo"]):
+            fail(f"extended content at {th} threads != input symbols")
+    log(f"[main] extend 9 MB + 1 MB = full ingest (words, final states, "
+        f"permutation); {len(grown.points)} points = the 9 MB plan's "
+        f"{len(head_plan.points)} + the suffix's Def-4.1 points; decodes "
+        "bit-exactly at 16, 128, 2176 threads")
+
+    # ingest_batch: three contents in one pipeline call.
+    parts = {"b0": raw["expo"][:MB], "b1": raw["zipf"][:2 * MB],
+             "b2": raw["expo"][3 * MB:4 * MB + 777]}
+    svc.ingest_batch(parts, 64)
+    for name, part in parts.items():
+        single = coder.ingest(part, 64)
+        if not _same_ingest(svc.content(name), single):
+            fail(f"ingest_batch {name} differs from its single ingest")
+        if not torch.equal(svc.decode(name, 64).cpu(),
+                           torch.as_tensor(part.astype(np.int32))):
+            fail(f"batch-ingested {name} != input symbols")
+    log("[main] ingest_batch of 3 contents = 3 single ingests; decodes "
+        "bit-exactly")
+    torch.cuda.synchronize()
+
+    launches = {"walk_pointer": rd.walk_decode_pointer.launches,
+                "walk_symbol": rd.walk_decode_symbol.launches,
+                "encode_scan": re_.encode_scan.launches,
+                "plan_splits": re_.plan_splits.launches}
+    plain = (rd.walk_decode_pointer.plain_calls
+             + rd.walk_decode_symbol.plain_calls
+             + re_.encode_scan.plain_calls + re_.plan_splits.plain_calls)
+    fills = rd.walk_decode_pointer.fills + rd.walk_decode_symbol.fills
+    stats = svc.stats.snapshot()
+    log(f"[main] layouts {layouts}; launches {launches}; plain versions "
+        f"{plain}; output fills {fills}; service {stats}")
+    if min(launches.values()) == 0 or plain != 0:
+        fail("the main path did not run on all four kernels alone")
+    if stats["fused_dispatches"] != 1 or stats["pointer_plans"] < 4:
+        fail("the mixed group did not fuse into one pointer-layout dispatch")
+    if (stats["ingests"], stats["extends"]) != (5, 1):
+        fail(f"service counted {stats['ingests']} ingests and "
+             f"{stats['extends']} extends, expected 5 and 1")
     # Warm end-to-end request latency (host clock around decode + sync).
     for name in assets:
         for th in THREADS:
@@ -465,7 +862,7 @@ def phase_times(svc, assets, enc, launches, errs, smi):
         log(f"[times] {kname} plain version at {PLAN_THREADS} threads: "
             f"{plain_ms:.3f} ms; card: {smi}")
         top = by_threads[PLAN_THREADS]
-        rows.append({"name": kname, "route": "cuda", "source": KERNEL_SOURCE,
+        rows.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
                      "replaces": REPLACES[kname],
                      "launches": launches[kname],
                      "max_abs_err": errs[kname], "ms": top["ms"],
@@ -477,17 +874,183 @@ def phase_times(svc, assets, enc, launches, errs, smi):
     return rows
 
 
+def _sm_clock_hz() -> float:
+    """The card's top SM clock, from nvidia-smi (MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def _median_ms(fn, reps: int, before=None) -> float:
+    """Median host-clock time of ``fn()`` ended by a synchronize, over
+    ``reps`` runs after one warm-up; ``before()`` runs untimed ahead of
+    each."""
+    times = []
+    for i in range(reps + 1):
+        if before is not None:
+            before()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t)
+    return statistics.median(times) * 1e3
+
+
+def _profile_ingest(svc, symbols) -> None:
+    """Where one warm ingest's time goes: ``torch.profiler`` over one
+    ``svc.ingest``, the device time of each kernel and copy (they run one
+    at a time on the stream, so their sum is the device's busy time) and
+    the host's self time by operation."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t = time.perf_counter()
+        svc.ingest("t_profile", symbols, PLAN_THREADS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    # Device-side events only (kernels and copies): an operator's device
+    # time repeats its kernels'.  The profiler's own buffer request is not
+    # the program's work.
+    dev = sorted(((getattr(e, "self_device_time_total", 0) / 1e3, e.key,
+                   e.count) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "Activity Buffer" not in e.key), reverse=True)
+    busy = sum(ms for ms, _, _ in dev)
+    if busy == 0:
+        log("[profile] the profiler saw no device time: device busy and "
+            "idle share not measured")
+        return
+    log(f"[profile] one warm ingest of expo under torch.profiler: wall "
+        f"{wall:.3f} ms, device busy {busy:.3f} ms (sum of kernel times), "
+        f"device idle share {1 - busy / wall:.3f}")
+    for ms, key, n in dev[:8]:
+        log(f"[profile]   device {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+    host = sorted(((e.self_cpu_time_total / 1e3, e.key, e.count)
+                   for e in events), reverse=True)
+    for ms, key, n in host[:10]:
+        log(f"[profile]   host   {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+
+
+def phase_ingest_times(svc, assets, launches, errs, smi, step_chain):
+    """Warm ingest and extend latency through the service, then each ingest
+    kernel at the main path's shapes (the expo asset, 2176 splits): held
+    against its plain version on the same arguments, CUDA-event device
+    time, bound, plain version's time."""
+    from repro_torch.core.encode import ops
+    from repro_torch.kernels.rans_encode import rans_encode as re_
+    raw = {k: v.astype(np.uint8) for k, v in assets.items()}
+    for name in assets:
+        ms = _median_ms(lambda: svc.ingest(f"t_{name}", raw[name],
+                                           PLAN_THREADS), INGEST_REPS)
+        log(f"[times] warm ingest of {name} (10 MB, {PLAN_THREADS} splits): "
+            f"median {ms:.3f} ms of {INGEST_REPS}; card: {smi}")
+    expo = raw["expo"]
+    ms = _median_ms(lambda: svc.extend("t_ext", expo[EXTEND_AT:]),
+                    INGEST_REPS, before=lambda: svc.ingest(
+                        "t_ext", expo[:EXTEND_AT], PLAN_THREADS))
+    log(f"[times] warm extend of 9 MB by 1 MB: median {ms:.3f} ms of "
+        f"{INGEST_REPS}; card: {smi}")
+
+    _profile_ingest(svc, raw["expo"])
+
+    coder = svc._encode_session()
+    plan = coder.prepare(expo, PLAN_THREADS)
+    sym, active, f, F, n_sym, n_splits, _, x0 = plan.args
+    B, G, W = sym.shape
+    clock = _sm_clock_hz()
+    enc_args = (sym, active, f, F, x0)
+    got = re_.encode_scan(*enc_args, n_bits=N_BITS)
+    want = []
+    plain_ms, _ = cuda_ms(lambda: want.extend(re_.encode_scan_plain(
+        *enc_args, n_bits=N_BITS)), 1, warm=False)
+    for g, w in zip(got, want):
+        _compare("encode_scan", g, w, errs)
+    ms, _ = cuda_ms(lambda: re_.encode_scan(*enc_args, n_bits=N_BITS),
+                    INGEST_REPS)
+    # Bytes: 4 B symbol and 1 B flag in, 2 B word, 1 B mask and 4 B y out
+    # per grid slot, x0 and the final states, the (f, F) table.
+    nbytes = B * G * W * (4 + 1 + 2 + 1 + 4) + B * W * 8 + f.numel() * 8
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    chain_ms = G * step_chain * CYCLES_PER_DEPENDENT_OP / clock * 1e3
+    rows = [{"name": "encode_scan", "route": "cuda",
+             "source": SOURCES["encode_scan"],
+             "replaces": REPLACES["encode_scan"],
+             "launches": launches["encode_scan"],
+             "max_abs_err": errs["encode_scan"], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, chain_ms),
+             "bound_by": "bytes" if bytes_ms >= chain_ms else "operations",
+             "library_ms": None, "bound_bytes": nbytes}]
+    log(f"[times] encode_scan on expo ({G} groups x {W} ways): {ms:.4f} ms "
+        f"({ms / G * 1e6:.1f} ns a group step); bound "
+        f"{rows[0]['bound_ms']:.4f} ms ({rows[0]['bound_by']}: chain_ms "
+        f"{G} steps x {step_chain:g} dependent SASS instructions x "
+        f"{CYCLES_PER_DEPENDENT_OP} cycles at {clock / 1e6:.0f} MHz = "
+        f"{chain_ms:.4f} ms; bytes_ms {nbytes} B = {bytes_ms:.4f} ms); plain "
+        f"version {plain_ms:.1f} ms; card: {smi}")
+
+    words, masks, ys, _, _ = got
+    csum, last, n_words = ops.emission_layout(masks)
+    nw = int(n_words[0])
+    _, kw, _ = ops.compact_emissions(words, ys, masks, csum, nw)
+    pargs = (kw, csum, last, ys, n_words.int(), n_sym, n_splits)
+    st = dict(window=WINDOW, n_slots=PLAN_THREADS - 1)
+    got = re_.plan_splits(*pargs, **st)
+    want = []
+    plain_ms, _ = cuda_ms(lambda: want.extend(re_.plan_splits_plain(
+        *pargs, **st)), 1, warm=False)
+    for g, w in zip(got, want):
+        _compare("plan_splits", g, w, errs)
+    ms, _ = cuda_ms(lambda: re_.plan_splits(*pargs, **st), INGEST_REPS)
+    S = int(got[0].sum())
+    # Bytes: the winners' reads (k_of_word, csum, W last[] and y entries)
+    # and the outputs (found, q, k[W], y[W]) of each found slot.
+    nbytes = S * (13 + 16 * W)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    levels = (W - 1).bit_length() + (2 * WINDOW).bit_length()
+    chain_ms = (S * (PLAN_SLOT_OPS + levels) * CYCLES_PER_DEPENDENT_OP
+                / clock * 1e3)
+    rows.append({"name": "plan_splits", "route": "cuda",
+                 "source": SOURCES["plan_splits"],
+                 "replaces": REPLACES["plan_splits"],
+                 "launches": launches["plan_splits"],
+                 "max_abs_err": errs["plan_splits"], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": max(bytes_ms, chain_ms),
+                 "bound_by": "bytes" if bytes_ms >= chain_ms
+                 else "operations", "library_ms": None,
+                 "bound_bytes": nbytes})
+    log(f"[times] plan_splits on expo ({S} split points of {nw} words): "
+        f"{ms:.4f} ms ({ms / S * 1e3:.2f} us a slot); bound "
+        f"{rows[1]['bound_ms']:.4f} ms ({rows[1]['bound_by']}: chain_ms, a "
+        f"model: {S} slots x ({PLAN_SLOT_OPS} + log2 {W} + ceil log2 "
+        f"{2 * WINDOW + 1} = {PLAN_SLOT_OPS + levels}) dependent operations "
+        f"x {CYCLES_PER_DEPENDENT_OP} cycles at {clock / 1e6:.0f} MHz = "
+        f"{chain_ms:.4f} ms; bytes_ms {nbytes} B = {bytes_ms:.6f} ms); "
+        f"plain version {plain_ms:.1f} ms; card: {smi}")
+    return rows
+
+
 def main() -> int:
     smi = phase_device()
     sys.path.insert(0, SRC)
     from repro_torch.kernels.rans_decode import rans_decode as rd
+    from repro_torch.kernels.rans_encode import rans_encode as re_
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_build(rd)
+    step_chain = phase_build([rd.LIBRARY, re_.LIBRARY])
     errs: dict = {}
     phase_kernels(dev, errs)
-    svc, assets, enc, launches = phase_main(dev, rd)
+    phase_encode_kernels(dev, errs)
+    phase_plan_kernels(dev, errs)
+    svc, assets, enc, launches = phase_main(dev, rd, re_)
     rows = phase_times(svc, assets, enc, launches, errs, smi)
+    rows += phase_ingest_times(svc, assets, launches, errs, smi,
+                               step_chain)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

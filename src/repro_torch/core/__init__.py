@@ -7,10 +7,13 @@
   recoil       — split planning / combining / decoding (§3, §4.1-4.2)
   metadata     — §4.3 bit-packed serialization (Tables 1-2)
   conventional — partitioning-symbols baseline (§2.3)
+  adaptive     — index-keyed distributions (§3.1 advantage 3)
   container    — on-wire formats for variations (a)-(e)
   convert      — plain-array carriers for models, plans and walk batches
   engine       — persistent DecoderSession (device-resident tables, bucketed
                  plan cache, Hopper kernels on the card)
+  encode       — EncoderSession: encode + Def-4.1 split planning on the
+                 device (Hopper kernels on the card), the ingest side
 
 The modules without torch code are copies of the JAX package's; tests hold
 them byte-equal to the originals.
@@ -27,5 +30,6 @@ from .conventional import (ConventionalEncoded, decode_conventional,  # noqa: F4
 from .vectorized import (WalkBatch, decode_conventional_fast,  # noqa: F401
                          decode_recoil_fast, encode_interleaved_fast,
                          walk_decode_batch)
-from .engine import (BucketPolicy, DecoderSession, DeviceStream,  # noqa: F401
+from .engine import (DecoderSession, DeviceStream,  # noqa: F401
                      pow2_bucket, work_bucket)
+from .encode import EncoderSession, IngestResult  # noqa: F401

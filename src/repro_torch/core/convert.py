@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .adaptive import ContextModel
 from .rans import RansParams, StaticModel
 from .recoil import RecoilPlan, SplitPoint
 from .vectorized import WalkBatch
@@ -29,6 +30,21 @@ def model_from_arrays(f, F, n_bits: int, ways: int) -> StaticModel:
     if F.shape != (len(f) + 1,) or int(F[-1]) != 1 << n_bits:
         raise ValueError("F must be the exclusive CDF of f, ending at 2^n")
     return StaticModel(f=f, F=F, params=RansParams(n_bits=n_bits, ways=ways))
+
+
+def context_model_from_arrays(f, F, ctx, n_bits: int,
+                              ways: int) -> ContextModel:
+    """An adaptive model from its C quantized distributions ``f`` [C, A]
+    (each row sums to 2^n), their exclusive CDFs ``F`` [C, A + 1] and the
+    per-symbol context ids ``ctx``."""
+    f = np.asarray(f, np.uint32)
+    F = np.asarray(F, np.uint32)
+    if f.ndim != 2 or F.shape != (f.shape[0], f.shape[1] + 1) or \
+            np.any(F[:, -1] != 1 << n_bits):
+        raise ValueError("F must be the exclusive CDFs of the rows of f, "
+                         "each ending at 2^n")
+    return ContextModel(f=f, F=F, ctx=np.asarray(ctx, np.int32),
+                        params=RansParams(n_bits=n_bits, ways=ways))
 
 
 def plan_from_arrays(offsets, ks, ys, n_symbols: int, n_words: int,

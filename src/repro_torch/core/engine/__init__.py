@@ -9,7 +9,7 @@
                     with exact accounting.
 """
 
-from .plan import (BucketPolicy, DecodePlan, DeviceStream, LEGACY_POLICY, LegacyBucketPolicy, SPLIT_FIELDS,
+from .plan import (DecodePlan, DeviceStream, SPLIT_FIELDS,
                    SYMBOL_SPLIT_FIELDS, chunk_bounds, concat_walk_batches,
                    derive_symbol_layout, kept_windows_tile, pad_split_arrays,
                    pow2_bucket, with_symbol_layout, work_bucket)
@@ -18,11 +18,9 @@ from .executors import (CudaExecutor, Executor, TorchExecutor,
 from .session import DecoderSession, EngineStats
 
 __all__ = [
-    "BucketPolicy", "CudaExecutor", "DecodePlan", "DecoderSession",
-    "DeviceStream", "EngineStats", "Executor", "LEGACY_POLICY",
-    "LegacyBucketPolicy", "SPLIT_FIELDS", "SYMBOL_SPLIT_FIELDS",
+    "CudaExecutor", "DecodePlan", "DecoderSession", "DeviceStream",
+    "EngineStats", "Executor", "SPLIT_FIELDS", "SYMBOL_SPLIT_FIELDS",
     "TorchExecutor", "chunk_bounds", "concat_walk_batches",
     "derive_symbol_layout", "kept_windows_tile", "make_executor",
-    "pad_split_arrays",
-    "pow2_bucket", "with_symbol_layout", "work_bucket",
+    "pad_split_arrays", "pow2_bucket", "with_symbol_layout", "work_bucket",
 ]

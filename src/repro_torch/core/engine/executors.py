@@ -37,9 +37,9 @@ from ..vectorized import WalkBatch
 from ...kernels.rans_decode.rans_decode import (load_library,
                                                 walk_decode_pointer,
                                                 walk_decode_symbol)
-from .plan import (BucketPolicy, DecodePlan, DeviceStream, LEGACY_POLICY,
-                   SPLIT_FIELDS, SYMBOL_SPLIT_FIELDS, kept_windows_tile,
-                   pad_split_arrays, pow2_bucket)
+from .plan import (DecodePlan, DeviceStream, SPLIT_FIELDS,
+                   SYMBOL_SPLIT_FIELDS, kept_windows_tile, pad_split_arrays,
+                   pow2_bucket, work_bucket)
 
 
 class Executor:
@@ -54,19 +54,17 @@ class Executor:
     raises on content registered without an emission log).  The selected
     layout joins the plan key, so the two walks never share launchers.
 
-    ``policy`` is the bucket ladder: every compute-shaped dimension (split
-    rows, walk steps, output slots) is bucketed through ``policy.work``/
-    ``policy.mem`` into the plan key, with ``policy.tag``; only the walk's
-    step count is launched at its bucket.  Stream
-    residency buckets (``upload_stream``) stay on the fixed pow2 ladder.
+    Split rows and walk steps join the plan key at their ``work_bucket``,
+    the output length at its ``pow2_bucket``; only the walk's step count is
+    launched at its bucket.  Streams reside at their pow2 bucket
+    (``upload_stream``).
     """
 
     impl: str = "?"
     device_type: str = "?"
 
     def __init__(self, model: StaticModel, packed_lut: bool, luts: tuple,
-                 device: torch.device, layout: str = "auto",
-                 policy: BucketPolicy | None = None):
+                 device: torch.device, layout: str = "auto"):
         if layout not in ("auto", "pointer", "symbol"):
             raise ValueError(f"unknown layout policy {layout!r}")
         if device.type != self.device_type:
@@ -77,7 +75,6 @@ class Executor:
         self.luts = luts
         self.device = device
         self.layout = layout
-        self.policy = policy if policy is not None else LEGACY_POLICY
         # Per-layout plan counts (picked up by ServiceStats).  plan() may
         # run from any thread, so bumps go through _count_layout's lock.
         self.layout_plans = {"pointer": 0, "symbol": 0}
@@ -118,21 +115,21 @@ class Executor:
         self._count_layout(layout)
         p = self.model.params
         W = batch.ways
-        s_b = self.policy.work(batch.k.shape[0])
-        steps_b = self.policy.work(batch.n_steps)
-        out_b = self.policy.mem(n_symbols)
+        s_b = work_bucket(batch.k.shape[0])
+        steps_b = work_bucket(batch.n_steps)
+        out_b = pow2_bucket(n_symbols)
         arrs = pad_split_arrays(batch, batch.k.shape[0], self.device)
         statics = dict(n_bits=p.n_bits, ways=W, n_steps=steps_b)
         if layout == "symbol":
             _check_sym_alignment(batch, ds, W)
             # The key keeps the reference's word-width field: 16-bit words
             # on both layouts here.
-            key = (self.impl, layout, self.policy.tag, self.packed_lut,
+            key = (self.impl, layout, self.packed_lut,
                    p.n_bits, W, s_b, steps_b, ds.sym_bucket, "u16", out_b)
             args = (ds.by_symbol, *self.luts,
                     *(arrs[f] for f in SYMBOL_SPLIT_FIELDS))
         else:
-            key = (self.impl, layout, self.policy.tag, self.packed_lut,
+            key = (self.impl, layout, self.packed_lut,
                    p.n_bits, W, s_b, steps_b, ds.bucket, "u16", out_b)
             args = (ds.words, *self.luts, *(arrs[f] for f in SPLIT_FIELDS))
         return DecodePlan(key=key, args=args, statics=statics,
@@ -184,10 +181,10 @@ class CudaExecutor(Executor):
 
 
 def make_executor(impl: str, model: StaticModel, packed_lut: bool,
-                  luts: tuple, device: torch.device, *, layout: str = "auto",
-                  policy: BucketPolicy | None = None) -> Executor:
+                  luts: tuple, device: torch.device, *,
+                  layout: str = "auto") -> Executor:
     if impl == "cuda":
-        return CudaExecutor(model, packed_lut, luts, device, layout, policy)
+        return CudaExecutor(model, packed_lut, luts, device, layout)
     if impl == "torch":
-        return TorchExecutor(model, packed_lut, luts, device, layout, policy)
+        return TorchExecutor(model, packed_lut, luts, device, layout)
     raise ValueError(f"unknown impl {impl!r}")

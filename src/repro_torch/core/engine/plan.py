@@ -65,51 +65,6 @@ def work_bucket(n: int, floor: int = 1) -> int:
     return 2 * p
 
 
-class BucketPolicy:
-    """Pluggable bucket ladder for plan-cache shape quantization.
-
-    An executor asks its policy for two kinds of buckets: ``work(n)`` for
-    compute-dominant dims (walk steps, split rows — padding is walked) and
-    ``mem(n)`` for memory-dominant dims (output slots — padding is stored,
-    barely touched).  Contract relied on by every executor:
-
-      * **coverage** — ``work(n, floor) >= max(n, floor, 1)`` (same for
-        ``mem``): padding never truncates;
-      * **monotone** — ``n1 <= n2`` implies ``bucket(n1) <= bucket(n2)``;
-      * **idempotent** — ``bucket(bucket(n)) == bucket(n)``;
-      * **pure** — the result depends only on ``(n, floor)``.
-
-    ``tag`` joins every plan key, so two policies that happen to agree on
-    some bucket values never alias one session's plans.
-    """
-
-    tag: str = "?"
-
-    def work(self, n: int, floor: int = 1) -> int:
-        raise NotImplementedError
-
-    def mem(self, n: int, floor: int = 1) -> int:
-        raise NotImplementedError
-
-
-class LegacyBucketPolicy(BucketPolicy):
-    """The hand-picked ladder: pow2 memory dims, pow2 + 1.5x-midpoint work
-    dims.  The default wherever no policy is supplied."""
-
-    tag = "legacy"
-
-    def work(self, n: int, floor: int = 1) -> int:
-        return work_bucket(n, floor)
-
-    def mem(self, n: int, floor: int = 1) -> int:
-        return pow2_bucket(n, floor)
-
-
-#: Shared default: module-level so "no policy" means ONE policy object (and
-#: one tag) everywhere, not per-session lookalikes.
-LEGACY_POLICY = LegacyBucketPolicy()
-
-
 @dataclasses.dataclass(frozen=True)
 class DeviceStream:
     """A stream registered with a session, resident on its device.

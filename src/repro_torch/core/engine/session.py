@@ -31,7 +31,7 @@ from ...device import resolve_device
 from ..rans import StaticModel
 from ..vectorized import WalkBatch
 from .executors import make_executor
-from .plan import LEGACY_POLICY, BucketPolicy, DecodePlan, DeviceStream
+from .plan import DecodePlan, DeviceStream
 
 
 @dataclasses.dataclass
@@ -57,14 +57,11 @@ class DecoderSession:
     ``layout`` is the stream-layout policy: ``"auto"`` (default) runs the
     pointer-free symbol-indexed walk for handles that carry a
     ``words_by_symbol`` permutation and the classic pointer walk otherwise;
-    ``"pointer"``/``"symbol"`` force one layout.  ``policy`` is the bucket
-    ladder: ``None`` for the legacy pow2/midpoint ladder, or a
-    :class:`BucketPolicy`.
+    ``"pointer"``/``"symbol"`` force one layout.
     """
 
     def __init__(self, model: StaticModel, *, device="cuda", impl=None,
-                 packed_lut: bool | None = None, layout: str = "auto",
-                 policy=None):
+                 packed_lut: bool | None = None, layout: str = "auto"):
         from ...kernels.rans_decode.ops import _luts, packed_lut_ok
         self.device = resolve_device(device)
         if impl is None:
@@ -76,17 +73,10 @@ class DecoderSession:
         elif packed_lut and not packed_lut_ok(model):
             raise ValueError("packed LUT requires 8-bit symbols and n <= 12")
         self.packed_lut = packed_lut
-        if policy is None:
-            policy = LEGACY_POLICY
-        elif not isinstance(policy, BucketPolicy):
-            raise ValueError(f"policy must be None or a BucketPolicy, got "
-                             f"{policy!r}")
-        self.policy = policy
         # Device-resident slot tables, uploaded once.
         self._luts = _luts(model, packed_lut, self.device)
         self.executor = make_executor(impl, model, packed_lut, self._luts,
-                                      self.device, layout=layout,
-                                      policy=self.policy)
+                                      self.device, layout=layout)
         self._exec: dict[tuple, object] = {}
         self._lock = threading.Lock()   # guards _exec + stats (see header)
         self.stats = EngineStats()

@@ -3,9 +3,10 @@
 The kernels live in ``csrc/rans_walk.cu`` (see its header for the design):
 ``walk_pointer_kernel`` replaces the Pallas ``_walk_kernel`` and
 ``walk_symbol_kernel`` replaces ``_walk_kernel_symbol``, each fused with the
-output scatter.  They are compiled with ``nvcc`` for ``sm_90a`` at first use
-into ``build/repro_torch/`` (cached by a hash of the source and flags) and
-bound with ``ctypes`` through plain ``extern "C"`` launchers.
+output scatter.  They are built and loaded by the port's one recipe
+(:mod:`repro_torch.kernels.build`: ``nvcc`` for ``sm_90a`` at first use into
+``build/repro_torch/``) and bound with ``ctypes`` through plain
+``extern "C"`` launchers.
 
 Each wrapper takes the tensors of a decode plan (the argument order of
 ``engine.plan.SPLIT_FIELDS`` / ``SYMBOL_SPLIT_FIELDS``):
@@ -28,90 +29,33 @@ and permutation entries travel as int16 bit patterns.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 
 import torch
 
 from ...core.vectorized import _walk_batch_impl, _walk_batch_symbol_impl
+from ..build import CudaLibrary
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rans_walk.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BLOCK = 128
 
-_lib = None
-_lib_lock = threading.Lock()
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rans_walk_pointer.argtypes = [
+        p, i, p, p, p, i, p, p, p, p, p, p, p, p, p, p,
+        i, i, i, i, p, i, p, p]
+    lib.rans_walk_pointer.restype = i
+    lib.rans_walk_symbol.argtypes = [
+        p, i, p, p, p, i, p, p, p, p, p, p, p, p, p, p,
+        i, i, i, i, p, i, p]
+    lib.rans_walk_symbol.restype = i
+    lib.rans_walk_error_string.argtypes = [i]
+    lib.rans_walk_error_string.restype = ctypes.c_char_p
 
 
-def nvcc() -> str:
-    """Path of the CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the one on
-    ``PATH``."""
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put it on PATH")
-    return found
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"librans_walk_{digest}.so"
-
-
-def build_library() -> Path:
-    """Compile ``rans_walk.cu`` unless this source is already built; returns
-    the shared library's path.  The compiler's ``-Xptxas -v`` report (each
-    kernel's registers, shared memory and spills) is kept beside it, see
-    :func:`ptxas_report`."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)   # atomic: concurrent builders never see a partial file
-    return out
-
-
-def ptxas_report() -> str:
-    log = library_path().with_suffix(".log")
-    return log.read_text() if log.exists() else ""
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library once per process."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.rans_walk_pointer.argtypes = [
-                p, i, p, p, p, i, p, p, p, p, p, p, p, p, p, p,
-                i, i, i, i, p, i, p, p]
-            lib.rans_walk_pointer.restype = i
-            lib.rans_walk_symbol.argtypes = [
-                p, i, p, p, p, i, p, p, p, p, p, p, p, p, p, p,
-                i, i, i, i, p, i, p]
-            lib.rans_walk_symbol.restype = i
-            lib.rans_walk_error_string.argtypes = [i]
-            lib.rans_walk_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+LIBRARY = CudaLibrary(SOURCE, "librans_walk", _bind)
+load_library = LIBRARY.load
 
 
 def reset_counts() -> None:

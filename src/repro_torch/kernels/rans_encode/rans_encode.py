@@ -1,0 +1,314 @@
+"""Hopper CUDA kernels for the Recoil ingest, their wrappers and their plain
+torch versions.
+
+The kernels live in ``csrc/rans_encode.cu`` (see its header for the
+design): ``encode_scan_kernel`` computes the JAX package's
+``core/encode/ops.py::encode_scan`` and ``plan_splits_kernel`` its
+``plan_split_scan``.  They are built and loaded by the port's one recipe
+(:mod:`repro_torch.kernels.build`) and bound with ``ctypes``.
+
+Each wrapper:
+
+  * on CPU tensors runs its plain torch version (same module) and bumps
+    its ``plain_calls`` counter;
+  * on CUDA tensors checks them, launches its kernel on PyTorch's current
+    stream and bumps its ``launches`` counter — or raises.  There is no
+    fallback from the kernel to the plain version.
+
+u32 values (states) travel as int32 bit patterns and the 16-bit words as
+int16 bit patterns, as in the walk kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from ..build import CudaLibrary
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "rans_encode.cu"
+MASK32 = 0xFFFFFFFF
+ROUNDS = 8          # the oracle's retry budget (heuristic.plan_split_offsets)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rans_encode_scan.argtypes = [p, p, p, p, p, i, i, i, p, i, i, i, i,
+                                     p, p, p, p, p, p]
+    lib.rans_encode_scan.restype = i
+    lib.rans_plan_splits.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i,
+                                     p, p, p, p, p]
+    lib.rans_plan_splits.restype = i
+    lib.rans_encode_error_string.argtypes = [i]
+    lib.rans_encode_error_string.restype = ctypes.c_char_p
+
+
+LIBRARY = CudaLibrary(SOURCE, "librans_encode", _bind)
+load_library = LIBRARY.load
+
+
+def reset_counts() -> None:
+    """Zero both wrappers' ``launches`` and ``plain_calls``."""
+    for fn in (encode_scan, plan_splits):
+        fn.launches = 0
+        fn.plain_calls = 0
+
+
+def _bits32(t: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as int32 bit patterns."""
+    return torch.where(t >= 2 ** 31, t - 2 ** 32, t).to(torch.int32)
+
+
+def _bits16(t: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^16) as int16 bit patterns."""
+    return torch.where(t >= 2 ** 15, t - 2 ** 16, t).to(torch.int16)
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != \
+            tuple(shape) or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: need contiguous {dtype}{list(shape)} on {dev}, got "
+            f"{t.dtype}{list(t.shape)} on {t.device}")
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err != 0:
+        msg = lib.rans_encode_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+# ---------------------------------------------------------------------------
+# Encode scan
+# ---------------------------------------------------------------------------
+
+def encode_scan_plain(sym, active, f_tab, F_tab, x0, ctx=None, *,
+                      n_bits: int):
+    """The plain torch encode: a loop over groups, all contents and ways at
+    once.  Same arguments and results as :func:`encode_scan`.
+
+    Gathers are hoisted out of the loop.  An inactive lane carries
+    f = 2^n, F = 0, which neither renormalizes (x < 2^32) nor moves the
+    state; the step is the kernel's ``((x1 / f) << n) + F + x1 % f``
+    written as ``x1 + (x1 / f) * (2^n - f) + F``, with ``f`` read as
+    ``max(f, 1)`` in the division, as the kernel does.
+    """
+    B, G, W = sym.shape
+    dev = sym.device
+    A = f_tab.shape[-1]
+    in_alpha = (sym >= 0) & (sym < A)
+    s = torch.where(in_alpha, sym, 0).long()
+    if ctx is None:
+        f, F = f_tab.long()[s], F_tab.long()[s]
+    else:
+        c = ctx.long().clamp(0, f_tab.shape[0] - 1)
+        f, F = f_tab.long()[c, s], F_tab.long()[c, s]
+    f = torch.where(in_alpha, f, 0)
+    zero_freq = (active & (f == 0)).reshape(B, -1).any(1)
+    scale = 1 << n_bits
+    f_eff = torch.where(active, f, scale)
+    F_eff = torch.where(active, F, 0)
+    fd = f_eff.clamp(min=1)
+    gain = scale - fd
+    shift = 32 - n_bits
+    x = x0.long() & MASK32
+    xs = torch.empty((B, G, W), dtype=torch.int64, device=dev)
+    for g in range(G):
+        xs[:, g] = x
+        x1 = torch.where((x >> shift) >= f_eff[:, g], x >> 16, x)
+        x = (x1 + (x1 // fd[:, g]) * gain[:, g] + F_eff[:, g]) & MASK32
+    masks = active & ((xs >> shift) >= f)
+    ys = torch.where(masks, xs >> 16, xs)
+    return (_bits16(xs & 0xFFFF), masks, _bits32(ys), _bits32(x), zero_freq)
+
+
+def encode_scan(sym, active, f_tab, F_tab, x0, ctx=None, *, n_bits: int):
+    """W-way interleaved rANS encode of B contents laid out as group grids.
+
+    ``sym`` int32[B, G, W] (symbol of flat index g * W + j at [b, g, j]),
+    ``active`` bool[B, G, W] (False on padding and resume lead slots),
+    ``f_tab``/``F_tab`` int32 — ``[A]``/``[A + 1]`` for a static model,
+    ``[C, A]``/``[C, A + 1]`` for an adaptive one, with ``ctx``
+    int32[B, G, W] the context of each slot — and ``x0`` int32[B, W], each
+    way's starting state (u32 bit patterns).
+
+    Returns ``(words int16[B, G, W], masks bool[B, G, W], ys int32[B, G, W],
+    final int32[B, W], zero_freq bool[B])``: each slot's pre-renormalization
+    low word, whether it emitted it, its bounded post-renormalization state
+    (u32 bits), each way's final state, and whether an active symbol had
+    zero frequency (or lay outside the alphabet).
+    """
+    if sym.device.type == "cpu":
+        encode_scan.plain_calls += 1
+        return encode_scan_plain(sym, active, f_tab, F_tab, x0, ctx,
+                                 n_bits=n_bits)
+    dev = sym.device
+    if sym.dim() != 3:
+        raise ValueError(f"sym must be [B, G, W], got {list(sym.shape)}")
+    B, G, W = sym.shape
+    if not 1 <= n_bits <= 16:
+        raise ValueError(f"n_bits={n_bits} outside [1, 16]")
+    if B * G * W >= 2 ** 31 or B * W >= 2 ** 31:
+        raise ValueError("the group grid must hold fewer than 2^31 slots")
+    _check("sym", sym, torch.int32, (B, G, W), dev)
+    _check("active", active, torch.bool, (B, G, W), dev)
+    _check("x0", x0, torch.int32, (B, W), dev)
+    adaptive = f_tab.dim() == 2
+    A = f_tab.shape[-1]
+    n_ctx = f_tab.shape[0] if adaptive else 1
+    _check("f_tab", f_tab, torch.int32, (n_ctx, A) if adaptive else (A,),
+           dev)
+    if F_tab.dim() != f_tab.dim() or F_tab.shape[-1] < A or \
+            (adaptive and F_tab.shape[0] != n_ctx):
+        raise ValueError("F_tab must have f_tab's rows and >= A columns")
+    _check("F_tab", F_tab, torch.int32, F_tab.shape, dev)
+    if adaptive:
+        if ctx is None:
+            raise ValueError("an adaptive table needs a ctx grid")
+        _check("ctx", ctx, torch.int32, (B, G, W), dev)
+    elif ctx is not None:
+        raise ValueError("ctx given with a static table")
+    words = torch.empty((B, G, W), dtype=torch.int16, device=dev)
+    masks = torch.empty((B, G, W), dtype=torch.bool, device=dev)
+    ys = torch.empty((B, G, W), dtype=torch.int32, device=dev)
+    final = torch.empty((B, W), dtype=torch.int32, device=dev)
+    zero_freq = torch.zeros(B, dtype=torch.int32, device=dev)
+    if B * W:
+        lib = load_library()
+        err = lib.rans_encode_scan(
+            sym.data_ptr(), active.data_ptr(),
+            None if ctx is None else ctx.data_ptr(), f_tab.data_ptr(),
+            F_tab.data_ptr(), A, n_ctx, F_tab.shape[-1], x0.data_ptr(), B, G,
+            W, n_bits, words.data_ptr(), masks.data_ptr(), ys.data_ptr(),
+            final.data_ptr(), zero_freq.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(lib, err, "rans_encode_scan")
+        encode_scan.launches += 1
+    return words, masks, ys, final, zero_freq != 0
+
+
+# ---------------------------------------------------------------------------
+# Definition-4.1 split planning
+# ---------------------------------------------------------------------------
+
+def _scan_candidates(kw, last, qs, W: int):
+    """Backward scans of candidate offsets ``qs`` in symbol space: way j's
+    last emission at offset <= q is its last emitted symbol <= kw[q], in
+    group ``last[t, j]`` with ``t = floor((kw[q] - j) / W)``.  Returns
+    ``(g2 int64[Q, W], ok bool[Q])`` — the groups, and whether every way
+    has such an emission."""
+    lanes = torch.arange(W, device=kw.device)
+    t = (kw[qs].long()[:, None] - lanes) // W
+    g2 = torch.where(t >= 0, last[t.clamp(min=0), lanes].long(), -1)
+    return g2, (g2 >= 0).all(1)
+
+
+def plan_splits_plain(k_of_word, csum, last, ys, n_words, n_symbols,
+                      n_splits, *, window: int, n_slots: int):
+    """The plain torch planner: the oracle's loops over slots and rounds,
+    each round's whole window evaluated at once.  Same arguments and
+    results as :func:`plan_splits`."""
+    B, G, W = last.shape
+    dev = last.device
+    found = torch.zeros((B, n_slots), dtype=torch.bool, device=dev)
+    q_out = torch.full((B, n_slots), -1, dtype=torch.int32, device=dev)
+    k_out = torch.zeros((B, n_slots, W), dtype=torch.int32, device=dev)
+    y_out = torch.zeros((B, n_slots, W), dtype=torch.int32, device=dev)
+    lanes = torch.arange(W, device=dev)
+    for b, (NW, N, M) in enumerate(zip(n_words.tolist(), n_symbols.tolist(),
+                                       n_splits.tolist())):
+        if M <= 1 or NW == 0 or N <= 0:
+            continue
+        kw, lst = k_of_word[b], last[b]
+        c_prev = min_q = 0
+        for m in range(min(M - 1, n_slots)):
+            T = -(-(N - c_prev) // (M - m))
+            target = c_prev + T
+            if target >= N:
+                break
+            center = int(csum[b, target - 1])
+            lo, hi = max(min_q, center - window), min(NW - 1, center + window)
+            got = False
+            for _ in range(ROUNDS):
+                if hi < lo:
+                    break
+                qs = torch.arange(lo, hi + 1, device=dev)
+                g2, ok = _scan_candidates(kw, lst, qs, W)
+                k = g2 * W + lanes
+                c, a = k.min(1).values, k.max(1).values
+                valid = ok & (c > c_prev)
+                if bool(valid.any()):
+                    h = (a - c_prev + 1 - T).abs() + (c - c_prev - T).abs()
+                    best = int(torch.where(valid, h, 2 ** 62).argmin())
+                    found[b, m] = True
+                    q_out[b, m] = lo + best
+                    k_out[b, m] = k[best].int()
+                    y_out[b, m] = ys[b, g2[best], lanes]
+                    c_prev, min_q = int(c[best]), lo + best + 1
+                    got = True
+                    break
+                lo = max(min_q, lo - 2 * window)
+                hi = min(NW - 1, hi + 2 * window)
+            if not got:
+                break
+    return found, q_out, k_out, y_out
+
+
+def plan_splits(k_of_word, csum, last, ys, n_words, n_symbols, n_splits, *,
+                window: int, n_slots: int):
+    """Greedy Def-4.1 split selection for B contents, bit-exact against
+    ``heuristic.plan_split_offsets``.
+
+    Per content b: ``k_of_word`` int32[B, cap] the emission log (flat symbol
+    index of each stream word, ascending), ``csum`` int32[B, G * W] the
+    inclusive emission count over flat symbol indices (``csum[k]`` = the
+    offset of the first emission past symbol k), ``last`` int32[B, G, W] the
+    last group <= g in which way j emitted (-1 before its first), ``ys``
+    int32[B, G, W] the bounded states (u32 bits), and ``n_words``,
+    ``n_symbols``, ``n_splits`` int32[B].
+
+    Returns per slot ``(found bool[B, S], q int32[B, S], k int32[B, S, W],
+    y int32[B, S, W])`` for ``S = n_slots``; the slots a content fills are
+    a prefix (planning stops at the first slot with no candidate), the
+    others hold ``q = -1`` and zeros.
+    """
+    if last.device.type == "cpu":
+        plan_splits.plain_calls += 1
+        return plan_splits_plain(k_of_word, csum, last, ys, n_words,
+                                 n_symbols, n_splits, window=window,
+                                 n_slots=n_slots)
+    dev = last.device
+    if last.dim() != 3 or k_of_word.dim() != 2:
+        raise ValueError("last must be [B, G, W] and k_of_word [B, cap]")
+    B, G, W = last.shape
+    cap = k_of_word.shape[1]
+    if B * G * W >= 2 ** 31 or B * cap >= 2 ** 31 or window < 1 or \
+            n_slots < 0 or cap == 0:
+        raise ValueError("plan_splits: sizes out of range")
+    _check("k_of_word", k_of_word, torch.int32, (B, cap), dev)
+    _check("csum", csum, torch.int32, (B, G * W), dev)
+    _check("last", last, torch.int32, (B, G, W), dev)
+    _check("ys", ys, torch.int32, (B, G, W), dev)
+    for name, t in (("n_words", n_words), ("n_symbols", n_symbols),
+                    ("n_splits", n_splits)):
+        _check(name, t, torch.int32, (B,), dev)
+    found = torch.zeros((B, n_slots), dtype=torch.bool, device=dev)
+    q_out = torch.full((B, n_slots), -1, dtype=torch.int32, device=dev)
+    k_out = torch.zeros((B, n_slots, W), dtype=torch.int32, device=dev)
+    y_out = torch.zeros((B, n_slots, W), dtype=torch.int32, device=dev)
+    if B and n_slots:
+        lib = load_library()
+        err = lib.rans_plan_splits(
+            k_of_word.data_ptr(), cap, csum.data_ptr(), last.data_ptr(),
+            ys.data_ptr(), n_words.data_ptr(), n_symbols.data_ptr(),
+            n_splits.data_ptr(), B, G, W, n_slots, window, found.data_ptr(),
+            q_out.data_ptr(), k_out.data_ptr(), y_out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(lib, err, "rans_plan_splits")
+        plan_splits.launches += 1
+    return found, q_out, k_out, y_out
+
+
+reset_counts()

@@ -4,9 +4,12 @@
 once (stream resident on the device), split metadata thinned per request to
 the client's parallelism, and every decode dispatched through a persistent
 :class:`repro_torch.core.engine.DecoderSession`, so steady-state traffic
-re-resolves nothing.  Content enters pre-encoded through ``register``,
-validated against the service model before it can serve.  Two request
-paths:
+re-resolves nothing.  Content enters either pre-encoded (``register``,
+validated against the service model before it can serve) or as raw symbols
+(``ingest``/``ingest_batch``/``extend`` — the
+:class:`repro_torch.core.encode.EncoderSession` ingest engine encodes and
+split-plans on the service's device, and the stream feeds registration
+without visiting the host).  Two request paths:
 
   * ``decode(name, n_threads)`` — immediate single dispatch.  The prepared
     :class:`~repro_torch.core.engine.DecodePlan` is memoized per
@@ -34,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+from ..core.encode import EncoderSession
 from ..core.engine import (DecodePlan, DecoderSession, DeviceStream,
                            concat_walk_batches, pow2_bucket,
                            with_symbol_layout)
@@ -61,6 +65,8 @@ class ServiceStats:
     coalesced_requests: int
     fused_dispatches: int
     flushes: int
+    ingests: int = 0           # contents registered through the encode engine
+    extends: int = 0           # incremental re-ingests (suffix-only encodes)
     symbol_plans: int = 0      # requests planned on the symbol-indexed layout
     pointer_plans: int = 0     # requests planned on the pointer-walk fallback
 
@@ -117,6 +123,7 @@ class DecodeService:
         self.session = DecoderSession(model, device=device, **session_kw)
         self.microbatch = int(microbatch)
         self.max_delay_ms = float(max_delay_ms)
+        self._encoder: EncoderSession | None = None   # built on first ingest
         self._contents: dict[str, _Content] = {}
         # Content generation counters: bumped on every (re-)registration so
         # downstream memos keyed on content identity can invalidate.
@@ -135,6 +142,8 @@ class DecodeService:
         self._coalesced = 0
         self._fused = 0
         self._flushes = 0
+        self._ingests = 0
+        self._extends = 0
         # Service lock: guards content/memos/pending/counters.  Reentrant
         # because register() flushes stale pending requests while already
         # holding it.  Launches run outside it.
@@ -194,6 +203,59 @@ class DecodeService:
         whole object)."""
         with self._lock:
             return self._contents[name]
+
+    # ------------------------------------------------------------------
+    # Ingest (encode engine -> registration, stream stays on the device)
+    # ------------------------------------------------------------------
+
+    def ingest(self, name: str, symbols, n_splits: int) -> RecoilPlan:
+        """Encode and split-plan ``symbols`` on the service's device and
+        register the result under ``name``; only the split metadata visits
+        the host.  Returns the registered :class:`RecoilPlan`."""
+        res = self._encode_session().ingest(symbols, n_splits, name=name)
+        self.register(name, res.plan, res.stream, res.final_states)
+        with self._lock:
+            self._ingests += 1
+        return res.plan
+
+    def extend(self, name: str, delta) -> RecoilPlan:
+        """Append ``delta`` symbols to an ingested content and re-register
+        the grown asset.  The encoder resumes the rANS state chains from the
+        cached final states, so only the suffix is encoded, and the spliced
+        stream equals a full re-encode's.  Re-registration bumps the content
+        generation and drops its plan memos.  Raises ``KeyError`` when
+        ``name`` has no resumable encoder state (fall back to
+        :meth:`ingest`)."""
+        res = self._encode_session().extend(name, delta)
+        self.register(name, res.plan, res.stream, res.final_states)
+        with self._lock:
+            self._extends += 1
+        return res.plan
+
+    def can_extend(self, name: str) -> bool:
+        """Whether :meth:`extend` would find resumable state for ``name``."""
+        with self._lock:
+            enc = self._encoder
+        return enc is not None and enc.can_extend(name)
+
+    def ingest_batch(self, contents: dict, n_splits: int) -> dict:
+        """Ingest many contents through one pipeline call:
+        ``{name: symbols}`` -> ``{name: RecoilPlan}``."""
+        names = list(contents)
+        results = self._encode_session().ingest_batch(
+            [contents[n] for n in names], n_splits)
+        for n, r in zip(names, results):
+            self.register(n, r.plan, r.stream, r.final_states)
+            with self._lock:
+                self._ingests += 1
+        return {n: r.plan for n, r in zip(names, results)}
+
+    def _encode_session(self) -> EncoderSession:
+        with self._lock:
+            if self._encoder is None:
+                self._encoder = EncoderSession(self.session.model,
+                                               device=self.session.device)
+            return self._encoder
 
     # ------------------------------------------------------------------
     # Request preparation (memoized per (name, n_threads))
@@ -357,6 +419,7 @@ class DecodeService:
                 plan_hits=self._plan_hits, plan_misses=self._plan_misses,
                 coalesced_requests=self._coalesced,
                 fused_dispatches=self._fused, flushes=self._flushes,
+                ingests=self._ingests, extends=self._extends,
                 symbol_plans=plans["symbol"], pointer_plans=plans["pointer"])
 
 

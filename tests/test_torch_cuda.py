@@ -1,4 +1,5 @@
-"""The Hopper walk kernels against their plain torch versions, on the card.
+"""The Hopper kernels against their plain torch versions, on the card: the
+walk kernels, the ingest kernels, and both paths through DecodeService.
 
 Marked ``cuda``: each test takes the ``cuda_device`` fixture, which skips
 when no CUDA device is present (decided inside the fixture, never while the
@@ -250,3 +251,153 @@ def test_plans_of_one_key_decode_their_own_sizes(cuda_device):
         assert out.shape == (plan.n_symbols,)
         assert (out.cpu().numpy() == syms[:plan.n_symbols]).all()
     assert (sess.stats.compiles, sess.stats.cache_hits) == (1, 1)
+
+
+# ---------------------------------------------------------------------------
+# The ingest kernels (kernels/rans_encode)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ways", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("n_bits", [11, 12, 16])
+@in_child
+def test_encode_kernel_equals_plain(cuda_device, ways, n_bits):
+    """Lengths off a multiple of W and under W, resume lead slots and a
+    random x0: every output of the kernel equals the plain version's."""
+    import torch
+    from repro_torch.core.rans import RansParams, StaticModel
+    from repro_torch.core.encode.executors import encode_scan_args
+    from repro_torch.kernels.rans_encode import rans_encode as re_
+    rng = np.random.default_rng(ways * 100 + n_bits)
+    for n, head in ((5, 0), (3_001, 3_001 % ways), (ways * 40, ways - 1)):
+        syms = np.minimum(rng.exponential(30.0, size=n).astype(np.int64),
+                          255)
+        model = StaticModel.from_symbols(
+            np.concatenate([syms, np.arange(256)]), 256,
+            RansParams(n_bits=n_bits, ways=ways))
+        x0 = rng.integers(1 << 16, 1 << 32, size=ways,
+                          dtype=np.uint64).astype(np.uint32)
+        args = encode_scan_args(syms, model.f, model.F, ways, cuda_device,
+                                head=head, x0=x0)
+        before = re_.encode_scan.launches
+        got = re_.encode_scan(*args, n_bits=n_bits)
+        want = re_.encode_scan_plain(*args, n_bits=n_bits)
+        assert re_.encode_scan.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert not bool(got[4][0])
+
+
+@in_child
+def test_encode_kernel_adaptive_wide_alphabet_and_zero_freq(cuda_device):
+    import torch
+    from repro_torch.core.adaptive import ContextModel
+    from repro_torch.core.rans import RansParams, StaticModel
+    from repro_torch.core.encode.executors import encode_scan_args
+    from repro_torch.kernels.rans_encode import rans_encode as re_
+    rng = np.random.default_rng(3)
+    n = 9_003
+    ctx = (np.arange(n) % 4).astype(np.int32)
+    cm = ContextModel.from_scale_table([3.0, 8.0, 20.0, 60.0], ctx, 256,
+                                       RansParams(n_bits=11, ways=32))
+    syms = np.minimum(rng.exponential(30.0, size=n).astype(np.int64), 255)
+    wide = rng.integers(0, 4096, size=20_000)
+    m12 = StaticModel.from_symbols(np.concatenate([wide, np.arange(4096)]),
+                                   4096, RansParams(n_bits=12, ways=32))
+    skew = np.minimum(rng.exponential(3.0, size=2_000).astype(np.int64), 255)
+    mz = StaticModel.from_symbols(skew, 256, RansParams(n_bits=11, ways=32))
+    bad = skew.copy()
+    bad[777] = 250
+    assert mz.f[250] == 0
+    for args, n_bits, flagged in (
+            (encode_scan_args(syms, cm.f, cm.F, 32, cuda_device, ctx=ctx),
+             11, False),
+            (encode_scan_args(wide, m12.f, m12.F, 32, cuda_device), 12,
+             False),
+            (encode_scan_args(bad, mz.f, mz.F, 32, cuda_device), 11,
+             True)):
+        got = re_.encode_scan(*args, n_bits=n_bits)
+        want = re_.encode_scan_plain(*args, n_bits=n_bits)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert bool(got[4][0]) is flagged
+
+
+@in_child
+def test_plan_kernel_equals_plain_and_heuristic(cuda_device):
+    """The planner kernel against its plain version and the port's
+    ``heuristic.plan_split_offsets`` on the same emission data, including
+    a case that needs window expansion and a 2176-thread plan."""
+    import torch
+    from repro_torch.core import heuristic
+    from repro_torch.core.encode import ops
+    from repro_torch.core.rans import RansParams, StaticModel
+    from repro_torch.core.encode.executors import encode_scan_args
+    from repro_torch.kernels.rans_encode import rans_encode as re_
+    for seed, n, ways, n_splits, lam in ((2, 4_000, 32, 100, 2.0),
+                                         (5, 30_000, 64, 2_176, 40.0),
+                                         (6, 20_011, 8, 16, 40.0)):
+        rng = np.random.default_rng(seed)
+        syms = np.minimum(rng.exponential(lam, size=n).astype(np.int64), 255)
+        model = StaticModel.from_symbols(syms, 256,
+                                         RansParams(n_bits=11, ways=ways))
+        sym, active, f, F, x0 = encode_scan_args(syms, model.f, model.F,
+                                                 ways, cuda_device)
+        words, masks, ys, _, _ = re_.encode_scan(sym, active, f, F, x0,
+                                                 n_bits=11)
+        csum, last, n_words = ops.emission_layout(masks)
+        nw = int(n_words[0])
+        stream, kw, yw = ops.compact_emissions(words, ys, masks, csum, nw)
+        args = (kw, csum, last, ys, n_words.int(),
+                torch.tensor([n], dtype=torch.int32, device=cuda_device),
+                torch.tensor([n_splits], dtype=torch.int32,
+                             device=cuda_device))
+        kw_args = dict(window=96, n_slots=n_splits - 1)
+        got = re_.plan_splits(*args, **kw_args)
+        want = re_.plan_splits_plain(*args, **kw_args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        index = heuristic.EmissionIndex(kw[0].cpu().numpy(),
+                                        yw[0].cpu().numpy().view(np.uint32),
+                                        ways)
+        offsets, ks, ys_h = heuristic.plan_split_offsets(index, n, n_splits)
+        found = got[0][0].cpu().numpy()
+        assert found.sum() == len(offsets)
+        np.testing.assert_array_equal(got[1][0].cpu().numpy()[found], offsets)
+        np.testing.assert_array_equal(got[2][0].cpu().numpy()[found], ks)
+        np.testing.assert_array_equal(
+            got[3][0].cpu().numpy()[found].view(np.uint32), ys_h)
+
+
+@in_child
+def test_ingest_round_trip_on_the_card(cuda_device):
+    """DecodeService on the card: ingest, extend and ingest_batch run both
+    ingest kernels and no plain version, equal the CPU session's results,
+    and decode to the input symbols."""
+    import torch
+    from repro_torch.core.encode import EncoderSession
+    from repro_torch.core.rans import RansParams, StaticModel
+    from repro_torch.kernels.rans_encode import rans_encode as re_
+    from repro_torch.runtime.serve import DecodeService
+    rng = np.random.default_rng(13)
+    syms = np.minimum(rng.exponential(40.0, size=50_001).astype(np.int64),
+                      255)
+    model = StaticModel.from_symbols(np.concatenate([syms, np.arange(256)]),
+                                     256, RansParams(n_bits=11, ways=32))
+    svc = DecodeService(model)
+    cpu = EncoderSession(model, device="cpu")
+    re_.reset_counts()
+    svc.ingest("a", syms[:45_003], 64)
+    assert svc.layout_for("a") == "symbol"
+    assert (svc.decode("a", 16).cpu().numpy() == syms[:45_003]).all()
+    svc.extend("a", syms[45_003:])
+    assert (svc.decode("a", 64).cpu().numpy() == syms).all()
+    svc.ingest_batch({"b": syms[:7_000], "c": syms[100:20_000]}, 8)
+    assert (svc.decode("c", 8).cpu().numpy() == syms[100:20_000]).all()
+    assert re_.encode_scan.launches == 3 and re_.plan_splits.launches == 3
+    assert re_.encode_scan.plain_calls == re_.plan_splits.plain_calls == 0
+    on_card = svc.content("b")
+    want = cpu.ingest(syms[:7_000], 8)
+    assert torch.equal(on_card.stream.words.cpu(), want.stream.words)
+    assert torch.equal(on_card.stream.by_symbol.cpu(), want.stream.by_symbol)
+    assert [p.offset for p in on_card.plan.points] == \
+        [p.offset for p in want.plan.points]

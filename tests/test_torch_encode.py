@@ -1,0 +1,415 @@
+"""The port's ingest engine on the CPU against the JAX package's
+``EncoderSession``.
+
+Both sessions encode and split-plan the same seeded content.  The stream
+words, the emission log (``k_of_word``, ``y_of_word``), the final states,
+the Definition-4.1 split points and the symbol-indexed permutation must be
+equal (the codec is integer-exact), for static and adaptive models, for
+extends and batches, and the ingested content must decode through the
+port's ``DecoderSession``.  Permutation entries are compared as 16-bit
+words: the port stores them as int16 bit patterns.
+
+One JAX session serves every case of a model where the cases allow it,
+since each new JAX shape bucket compiles an executable.
+
+Each test runs in a child pytest process (``test_torch_isolation.in_child``),
+and the port is imported inside the tests, so the test worker itself never
+loads torch beside jaxlib.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+from test_torch_isolation import in_child
+
+from repro.core import recoil as j_recoil
+from repro.core.adaptive import ContextModel as JContextModel
+from repro.core.encode import EncoderSession as JEncoder
+from repro.core.encode.ops import encode_scan as j_encode_scan
+from repro.core.interleaved import encode_interleaved as j_encode_oracle
+from repro.core.rans import RansParams as JParams, StaticModel as JModel
+
+PARAMS = JParams(n_bits=11, ways=32)
+_J_SESSIONS: dict = {}
+
+
+def _symbols(seed, n, lam=40.0):
+    rng = np.random.default_rng(seed)
+    return np.minimum(rng.exponential(lam, size=n).astype(np.int64), 255)
+
+
+def _jmodel(ways=32, n_bits=11):
+    syms = np.concatenate([_symbols(500 + ways, 60_000), np.arange(256)])
+    return JModel.from_symbols(syms, 256, JParams(n_bits=n_bits, ways=ways))
+
+
+def _shared(ways=32):
+    """One model and one JAX session per ways, shared across cases."""
+    if ways not in _J_SESSIONS:
+        jm = _jmodel(ways)
+        _J_SESSIONS[ways] = (jm, JEncoder(jm))
+    return _J_SESSIONS[ways]
+
+
+def _port(jm, device="cpu", **kw):
+    from repro_torch.core import convert
+    from repro_torch.core.encode import EncoderSession
+    tm = convert.model_from_arrays(jm.f, jm.F, jm.params.n_bits,
+                                   jm.params.ways)
+    return tm, EncoderSession(tm, device=device, **kw)
+
+
+def _assert_plans_equal(got, want):
+    assert (got.n_symbols, got.n_words, got.ways) == \
+        (want.n_symbols, want.n_words, want.ways)
+    assert len(got.points) == len(want.points)
+    for a, b in zip(got.points, want.points):
+        assert a.offset == b.offset
+        np.testing.assert_array_equal(a.k, b.k)
+        np.testing.assert_array_equal(a.y, b.y)
+
+
+def _assert_results_equal(t, j):
+    """A port IngestResult against the JAX one, field by field."""
+    assert t.n_words == j.n_words
+    assert t.stream.host is None
+    assert (t.stream.bucket, t.stream.sym_bucket) == \
+        (j.stream.bucket, j.stream.sym_bucket)
+    np.testing.assert_array_equal(
+        t.stream.words.numpy().view(np.uint16),
+        np.asarray(j.stream.words).astype(np.uint16))
+    np.testing.assert_array_equal(t.final_states, j.final_states)
+    np.testing.assert_array_equal(
+        t.stream.by_symbol.numpy().astype(np.int64) & 0xFFFF,
+        np.asarray(j.stream.by_symbol).astype(np.int64) & 0xFFFF)
+    _assert_plans_equal(t.plan, j.plan)
+
+
+def _assert_encoded_equal(t, j):
+    for field in ("stream", "final_states", "k_of_word", "y_of_word"):
+        np.testing.assert_array_equal(getattr(t, field), getattr(j, field),
+                                      err_msg=field)
+        assert getattr(t, field).dtype == getattr(j, field).dtype, field
+    assert t.n_symbols == j.n_symbols
+
+
+# ---------------------------------------------------------------------------
+# Encode parity (stream + emission log + final states)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [7, 31, 32, 1_000, 8_192, 20_013])
+@in_child
+def test_encode_matches_reference(n):
+    jm, jsess = _shared()
+    _, tsess = _port(jm)
+    syms = _symbols(n, n)
+    _assert_encoded_equal(tsess.encode(syms), jsess.encode(syms))
+
+
+@pytest.mark.parametrize("ways", [8, 16, 64, 128])
+@in_child
+def test_ingest_at_other_ways_matches_reference(ways):
+    """Narrow interleaves share a warp between lanes of one content on the
+    card; wide ones span several warps.  Stream, states, plan and
+    permutation equal the reference's."""
+    jm, jsess = _shared(ways)
+    _, tsess = _port(jm)
+    syms = _symbols(ways, 12_007)
+    _assert_results_equal(tsess.ingest(syms, 8), jsess.ingest(syms, 8))
+
+
+@in_child
+def test_encode_scan_op_matches_reference():
+    """``ops.encode_scan`` on one [G, W] grid with lead slots and a resumed
+    x0 against the reference's ``encode_scan``, every output."""
+    import torch
+    from repro_torch.core.encode import ops
+    jm, _ = _shared()
+    W = 32
+    rng = np.random.default_rng(7)
+    syms = _symbols(8, 5_000)
+    head = 13
+    G = -(-(head + syms.size) // W)
+    grid = np.zeros(G * W, np.int32)
+    active = np.zeros(G * W, bool)
+    grid[head:head + syms.size] = syms
+    active[head:head + syms.size] = True
+    grid, active = grid.reshape(G, W), active.reshape(G, W)
+    x0 = rng.integers(1 << 16, 1 << 32, size=W, dtype=np.uint64).astype(
+        np.uint32)
+    (jf, jz), (jw, jmask, jy) = j_encode_scan(
+        jnp.asarray(grid), jnp.asarray(active),
+        jnp.asarray(jm.f.astype(np.int32)), jnp.asarray(jm.F.astype(np.int32)),
+        11, W, x0=x0)
+    (tf, tz), (tw, tmask, ty) = ops.encode_scan(
+        torch.as_tensor(grid), torch.as_tensor(active),
+        torch.as_tensor(jm.f.astype(np.int32)),
+        torch.as_tensor(jm.F.astype(np.int32)), 11, W,
+        x0=torch.as_tensor(x0.view(np.int32)))
+    np.testing.assert_array_equal(tf.numpy().view(np.uint32), np.asarray(jf))
+    assert not bool(tz) and not bool(jz)
+    np.testing.assert_array_equal(tw.numpy().view(np.uint16), np.asarray(jw))
+    np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
+    np.testing.assert_array_equal(ty.numpy().view(np.uint32), np.asarray(jy))
+
+
+# ---------------------------------------------------------------------------
+# Ingest parity (split metadata + device stream + permutation)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,n_splits", [
+    (1_000, 1), (20_011, 2), (20_011, 16), (40_000, 64)])
+@in_child
+def test_ingest_matches_reference(n, n_splits):
+    jm, jsess = _shared()
+    _, tsess = _port(jm)
+    syms = _symbols(n_splits, n)
+    _assert_results_equal(tsess.ingest(syms, n_splits),
+                          jsess.ingest(syms, n_splits))
+
+
+@in_child
+def test_ingest_random_parity_sweep():
+    """Random sizes (ragged), rates and split counts, each with its own
+    model: the port's plans and streams equal the reference's host oracle
+    (``encode_interleaved`` + ``plan_splits``), which the JAX package's
+    EncoderSession is held equal to by its own tests."""
+    from repro_torch.core import convert
+    from repro_torch.core.encode import EncoderSession
+    for seed in range(8):
+        rng = np.random.default_rng(seed)
+        n = int(rng.integers(64, 20_000))
+        lam = float(rng.uniform(2, 80))
+        syms = np.minimum(rng.exponential(lam, size=n).astype(np.int64), 255)
+        jm = JModel.from_symbols(np.concatenate([syms, np.arange(256)]), 256,
+                                 PARAMS)
+        tsess = EncoderSession(convert.model_from_arrays(jm.f, jm.F, 11, 32),
+                               device="cpu")
+        ref = j_encode_oracle(syms, jm)
+        for n_splits in (1, 3, int(rng.integers(2, 48))):
+            res = tsess.ingest(syms, n_splits)
+            _assert_plans_equal(res.plan, j_recoil.plan_splits(ref, n_splits))
+            np.testing.assert_array_equal(
+                res.stream.words[:res.n_words].numpy().view(np.uint16),
+                ref.stream)
+
+
+@in_child
+def test_expansion_trigger_matches_reference():
+    """A skewed model at 100 splits needs window expansion (the reference's
+    fast tier flags it and re-runs); the port evaluates the rounds lazily
+    and must land on the same points."""
+    syms = _symbols(2, 4_000, lam=2.0)
+    jm = JModel.from_symbols(syms, 256, PARAMS)
+    jsess = JEncoder(jm)
+    want = jsess.ingest(syms, 100)
+    assert jsess.stats.fallbacks == 1
+    _, tsess = _port(jm)
+    _assert_results_equal(tsess.ingest(syms, 100), want)
+
+
+@in_child
+def test_wide_alphabet_over_8_bits_per_symbol_matches_reference():
+    """A 4096-symbol alphabet at n = 12 spends more than 8 bits a symbol,
+    which overflows the reference's fast stream capacity; the port has no
+    capacity tier and must still match."""
+    params12 = JParams(n_bits=12, ways=32)
+    rng = np.random.default_rng(3)
+    syms = rng.integers(0, 4096, size=60_000).astype(np.int64)
+    jm = JModel.from_symbols(np.concatenate([syms, np.arange(4096)]), 4096,
+                             params12)
+    jsess = JEncoder(jm)
+    want = jsess.ingest(syms, 8)
+    assert jsess.stats.fallbacks == 1
+    _, tsess = _port(jm)
+    got = tsess.ingest(syms, 8)
+    _assert_results_equal(got, want)
+    assert got.n_words > syms.size // 2
+
+
+@in_child
+def test_adaptive_ingest_matches_reference_and_round_trips():
+    from repro_torch.core import convert
+    from repro_torch.core.adaptive import decode_recoil_adaptive
+    from repro_torch.core.encode import EncoderSession
+    n = 6_005
+    ctx = (np.arange(n) % 3).astype(np.int32)
+    jcm = JContextModel.from_scale_table([5.0, 15.0, 50.0], ctx, 256, PARAMS)
+    tcm = convert.context_model_from_arrays(jcm.f, jcm.F, jcm.ctx, 11, 32)
+    np.testing.assert_array_equal(tcm.slot_luts(), jcm.slot_luts())
+    syms = _symbols(11, n, lam=25.0)
+    tsess = EncoderSession(tcm, device="cpu")
+    jsess = JEncoder(jcm)
+    _assert_encoded_equal(tsess.encode(syms), jsess.encode(syms))
+    got = tsess.ingest(syms, 8)
+    _assert_results_equal(got, jsess.ingest(syms, 8))
+    words = got.stream.words[:got.n_words].numpy().view(np.uint16)
+    np.testing.assert_array_equal(
+        decode_recoil_adaptive(got.plan, words, got.final_states, tcm), syms)
+    with pytest.raises(ValueError, match="ctx"):
+        tsess.ingest(np.concatenate([syms, syms[:5]]), 4)
+
+
+@in_child
+def test_ingest_batch_matches_singles_and_reference():
+    jm, jsess = _shared()
+    _, tsess = _port(jm)
+    contents = [_symbols(m, m) for m in (5_000, 7_777, 6_001)]
+    batched = tsess.ingest_batch(contents, 8)
+    assert tsess.stats.encodes == 1
+    j_batched = jsess.ingest_batch(contents, 8)
+    for b, jb, c in zip(batched, j_batched, contents):
+        _assert_results_equal(b, tsess.ingest(c, 8))
+        _assert_results_equal(b, jb)
+    mixed = tsess.ingest_batch(contents[:2], [3, 17])
+    _assert_results_equal(mixed[0], tsess.ingest(contents[0], 3))
+    _assert_results_equal(mixed[1], tsess.ingest(contents[1], 17))
+
+
+# ---------------------------------------------------------------------------
+# Incremental re-ingest
+# ---------------------------------------------------------------------------
+
+@in_child
+def test_extend_matches_reference_and_full_reingest():
+    """Chained extends from a base whose length is not a multiple of W:
+    the port's extend equals the reference's (points included), and its
+    stream, states and permutation equal a full re-ingest of the grown
+    content."""
+    jm, _ = _shared()
+    jsess = JEncoder(jm)
+    _, tsess = _port(jm)
+    base = _symbols(1, 2_999)
+    assert base.size % 32
+    tsess.ingest(base, 8, name="a")
+    jsess.ingest(base, 8, name="a")
+    grown = base
+    for i, d in enumerate([37, 7, 1]):
+        delta = _symbols(100 + i, d)
+        grown = np.concatenate([grown, delta])
+        got = tsess.extend("a", delta)
+        _assert_results_equal(got, jsess.extend("a", delta))
+        full = tsess.ingest(grown, got.plan.n_threads)
+        assert got.n_words == full.n_words
+        np.testing.assert_array_equal(got.stream.words.numpy(),
+                                      full.stream.words.numpy())
+        np.testing.assert_array_equal(got.stream.by_symbol.numpy(),
+                                      full.stream.by_symbol.numpy())
+        np.testing.assert_array_equal(got.final_states, full.final_states)
+    assert tsess.stats.extends == 3
+
+
+@in_child
+def test_adaptive_extend_matches_reference():
+    from repro_torch.core import convert
+    from repro_torch.core.encode import EncoderSession
+    params = JParams(n_bits=10, ways=16)
+    n0, ds = 2_000, [31]
+    total = n0 + sum(ds)
+    ctx = (np.arange(total) // 257 % 4).astype(np.int32)
+    jcm = JContextModel.from_scale_table(
+        np.array([8.0, 16.0, 32.0, 64.0]), ctx, 256, params)
+    tcm = convert.context_model_from_arrays(jcm.f, jcm.F, jcm.ctx, 10, 16)
+    syms = _symbols(5, total)
+    jsess, tsess = JEncoder(jcm), EncoderSession(tcm, device="cpu")
+    jsess.ingest(syms[:n0], 6, name="a")
+    tsess.ingest(syms[:n0], 6, name="a")
+    off = n0
+    for d in ds:
+        got = tsess.extend("a", syms[off:off + d])   # ctx sliced from model
+        _assert_results_equal(got, jsess.extend("a", syms[off:off + d]))
+        off += d
+
+
+@in_child
+def test_resume_lru_and_missing_state():
+    jm, _ = _shared()
+    _, tsess = _port(jm, resume_capacity=2)
+    base = _symbols(2, 1_000)
+    tsess.ingest(base, 4)                          # no name -> no tail
+    with pytest.raises(KeyError, match="no resumable ingest state"):
+        tsess.extend("a", _symbols(3, 10))
+    for name in ("a", "b", "c"):
+        tsess.ingest(base, 4, name=name)
+    assert tsess.stats.resume_evictions == 1
+    assert not tsess.can_extend("a")
+    assert tsess.can_extend("b") and tsess.can_extend("c")
+    tsess.extend("b", _symbols(4, 10))              # touch b: c is now oldest
+    tsess.ingest(base, 4, name="d")
+    assert not tsess.can_extend("c") and tsess.can_extend("b")
+    assert tsess.stats.resume_evictions == 2
+    with pytest.raises(KeyError):
+        tsess.extend("a", _symbols(3, 10))
+    with pytest.raises(ValueError, match="non-empty"):
+        tsess.extend("b", np.array([], np.int64))
+    tsess.forget("b")
+    assert not tsess.can_extend("b")
+
+
+# ---------------------------------------------------------------------------
+# Input checks, devices and decode of ingested content
+# ---------------------------------------------------------------------------
+
+@in_child
+def test_bad_inputs_raise():
+    import torch
+    from repro_torch.core.encode.session import MAX_SYMBOLS
+    syms = _symbols(8, 5_000)
+    jm = JModel.from_symbols(syms, 256, PARAMS)
+    _, tsess = _port(jm)
+    with pytest.raises(ValueError, match="alphabet"):
+        tsess.ingest(np.array([1, 2, 300]), 2)
+    with pytest.raises(ValueError, match="alphabet"):
+        tsess.ingest(np.array([-1, 2, 3]), 2)
+    missing = np.setdiff1d(np.arange(256), np.unique(syms))
+    assert missing.size
+    with pytest.raises(ValueError, match="zero quantized frequency"):
+        tsess.ingest(np.array([int(missing[0])] * 100), 2)
+    with pytest.raises(ValueError, match="at least one"):
+        tsess.ingest(np.zeros(10, np.int64), 0)
+    huge = torch.zeros(1, dtype=torch.uint8).expand(MAX_SYMBOLS)
+    with pytest.raises(ValueError, match="planning range"):
+        tsess.ingest(huge, 2)
+    with pytest.raises(ValueError, match="integers"):
+        tsess.ingest(np.array([1.0, 2.0]), 2)
+    with pytest.raises(ValueError, match="static"):
+        tsess.ingest(syms[:100], 2, ctx=np.zeros(100, np.int32))
+
+
+@in_child
+def test_session_device_rules_and_tensor_input():
+    """The session defaults to the card and raises without one; on the CPU
+    only the plain versions run, and a torch tensor of symbols ingests like
+    the numpy array it holds."""
+    import torch
+    from repro_torch.core.encode import EncoderSession
+    from repro_torch.kernels.rans_encode import rans_encode
+    jm, _ = _shared()
+    tm, tsess = _port(jm)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            EncoderSession(tm)
+    syms = _symbols(9, 3_000)
+    rans_encode.reset_counts()
+    a = tsess.ingest(syms, 6)
+    b = tsess.ingest(torch.as_tensor(syms.astype(np.uint8)), 6)
+    _assert_results_equal(a, b)
+    assert rans_encode.encode_scan.plain_calls == 2
+    assert rans_encode.plan_splits.plain_calls == 2
+    assert rans_encode.encode_scan.launches == 0
+
+
+@in_child
+def test_ingested_content_decodes_through_port_decoder():
+    from repro_torch.core.engine import DecoderSession
+    jm, _ = _shared()
+    tm, tsess = _port(jm)
+    syms = _symbols(9, 25_007)
+    res = tsess.ingest(syms, 12)
+    dec = DecoderSession(tm, device="cpu")
+    out = dec.decode(res.plan, res.stream, res.final_states)
+    np.testing.assert_array_equal(out.numpy(), syms)
+    # The stream resides at the bucket an upload of the same words gets.
+    up = dec.upload_stream(res.stream.words[:res.n_words].numpy().view(
+        np.uint16))
+    assert up.bucket == res.stream.bucket

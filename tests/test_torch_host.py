@@ -1,7 +1,8 @@
 """The port's copies of the host modules against their originals.
 
 The port keeps its own copy of every jax-free module it needs (rans,
-interleaved, heuristic, recoil, bitio, metadata, conventional, container)
+interleaved, heuristic, recoil, bitio, metadata, conventional, container,
+adaptive)
 and re-implements the host encoder.  These tests feed the same seeded
 inputs to both packages and require equal arrays and equal bytes, and
 parse the frozen golden containers with the port.
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 from test_torch_isolation import in_child
 
+from repro.core import adaptive as j_adaptive
 from repro.core import container as j_container
 from repro.core import metadata as j_metadata
 from repro.core import rans as j_rans
@@ -185,3 +187,47 @@ def test_golden_vectors_parse_to_frozen_truth(name):
     else:
         again = container.pack_recoil(enc, parsed.model, plan)
     assert again == buf
+
+
+@pytest.mark.parametrize("ways,n_bits,family", [
+    (32, 11, "gaussian"), (16, 10, "laplacian")])
+@in_child
+def test_adaptive_equals_reference(ways, n_bits, family):
+    """The copied adaptive module: context tables, the adaptive encoder's
+    stream and emission log, and the adaptive Recoil decode, equal to the
+    reference's; ``convert.context_model_from_arrays`` carries a reference
+    model across unchanged."""
+    from repro_torch.core import adaptive, convert, rans, recoil
+    n = 3_001
+    ctx = (np.arange(n) // 97 % 3).astype(np.int32)
+    scales = [4.0, 12.0, 40.0]
+    jcm = j_adaptive.ContextModel.from_scale_table(
+        scales, ctx, 256, j_rans.RansParams(n_bits=n_bits, ways=ways),
+        family=family)
+    tcm = adaptive.ContextModel.from_scale_table(
+        scales, ctx, 256, rans.RansParams(n_bits=n_bits, ways=ways),
+        family=family)
+    carried = convert.context_model_from_arrays(jcm.f, jcm.F, jcm.ctx,
+                                                n_bits, ways)
+    for model in (tcm, carried):
+        for field in ("f", "F", "ctx"):
+            np.testing.assert_array_equal(getattr(model, field),
+                                          getattr(jcm, field))
+            assert getattr(model, field).dtype == getattr(jcm, field).dtype
+        np.testing.assert_array_equal(model.slot_luts(), jcm.slot_luts())
+    syms = _symbols(ways, n, alphabet=256, lam=30.0)
+    a = j_adaptive.encode_interleaved_adaptive(syms, jcm)
+    b = adaptive.encode_interleaved_adaptive(syms, tcm)
+    for field in ("stream", "final_states", "k_of_word", "y_of_word"):
+        np.testing.assert_array_equal(getattr(b, field), getattr(a, field))
+        assert getattr(b, field).dtype == getattr(a, field).dtype, field
+    jp = j_recoil.plan_splits(a, 6)
+    tp = recoil.plan_splits(b, 6)
+    out = adaptive.decode_recoil_adaptive(tp, b.stream, b.final_states, tcm)
+    np.testing.assert_array_equal(
+        out, j_adaptive.decode_recoil_adaptive(jp, a.stream, a.final_states,
+                                               jcm))
+    np.testing.assert_array_equal(out, syms)
+    with pytest.raises(ValueError, match="exclusive CDFs"):
+        convert.context_model_from_arrays(jcm.f, jcm.F[:, :-1], jcm.ctx,
+                                          n_bits, ways)

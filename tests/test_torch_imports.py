@@ -44,6 +44,7 @@ def test_serve_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
             "import repro_torch.runtime.serve, repro_torch.core.convert\n"
             "import repro_torch.kernels.rans_decode\n"
+            "import repro_torch.core.encode, repro_torch.kernels.rans_encode\n"
             "print('ok')")
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -144,3 +144,63 @@ def test_fused_permutation_stays_int16():
     assert all(tsvc.content(n).stream.words.dtype == torch.int16
                for n in payloads)
     assert _counters(tsvc) == _counters(jsvc)
+
+
+@in_child
+def test_ingest_extend_and_batch_match_reference():
+    """Content that enters as raw symbols: ``ingest`` serves on the symbol
+    walk, ``extend`` re-registers (generation bump, plan memos dropped),
+    ``ingest_batch`` registers several at once — outputs, plans and
+    counters equal the reference service's."""
+    from repro_torch.core import convert
+    from repro_torch.runtime.serve import DecodeService
+    rng = np.random.default_rng(5)
+    syms = {name: np.minimum(rng.exponential(35.0, size=n).astype(np.int64),
+                             255)
+            for name, n in (("a", 9_001), ("b", 4_000), ("c", 5_555))}
+    delta = np.minimum(rng.exponential(35.0, size=700).astype(np.int64), 255)
+    jm = JModel.from_symbols(np.concatenate([*syms.values(), delta,
+                                             np.arange(256)]), 256,
+                             JParams(n_bits=11, ways=32))
+    tm = convert.model_from_arrays(jm.f, jm.F, 11, 32)
+    jsvc = JService(jm, impl="jnp")
+    tsvc = DecodeService(tm, device="cpu")
+    counters = COUNTERS + ("ingests", "extends")
+
+    def same(name, threads, want):
+        t_out = tsvc.decode(name, threads).numpy()
+        np.testing.assert_array_equal(t_out, np.asarray(jsvc.decode(name,
+                                                                    threads)))
+        np.testing.assert_array_equal(t_out, want)
+
+    def plans_equal(tp, jp):
+        assert [p.offset for p in tp.points] == [p.offset for p in jp.points]
+        for a, b in zip(tp.points, jp.points):
+            np.testing.assert_array_equal(a.k, b.k)
+            np.testing.assert_array_equal(a.y, b.y)
+
+    plans_equal(tsvc.ingest("a", syms["a"], 16), jsvc.ingest("a", syms["a"],
+                                                             16))
+    assert tsvc.layout_for("a") == jsvc.layout_for("a") == "symbol"
+    for threads in (4, 16, 4):
+        same("a", threads, syms["a"])
+    assert tsvc.can_extend("a") and not tsvc.can_extend("b")
+    assert tsvc.generation("a") == jsvc.generation("a") == 1
+    misses = tsvc.stats.plan_misses
+    plans_equal(tsvc.extend("a", delta), jsvc.extend("a", delta))
+    assert tsvc.generation("a") == jsvc.generation("a") == 2
+    grown = np.concatenate([syms["a"], delta])
+    same("a", 4, grown)
+    assert tsvc.stats.plan_misses == misses + 1     # memo dropped
+    t_plans = tsvc.ingest_batch({"b": syms["b"], "c": syms["c"]}, 8)
+    j_plans = jsvc.ingest_batch({"b": syms["b"], "c": syms["c"]}, 8)
+    for name in ("b", "c"):
+        plans_equal(t_plans[name], j_plans[name])
+        same(name, 3, syms[name])
+    t_snap, j_snap = tsvc.stats.snapshot(), jsvc.stats.snapshot()
+    assert {k: t_snap[k] for k in counters} == {k: j_snap[k] for k in counters}
+    assert (t_snap["ingests"], t_snap["extends"]) == (3, 1)
+    with pytest.raises(KeyError):
+        tsvc.extend("zz", delta)
+    with pytest.raises(ValueError, match="alphabet"):
+        tsvc.ingest("bad", np.array([1, 2, 999]), 2)
