@@ -7,9 +7,9 @@ package — in five phases, each failing loudly with a non-zero exit:
 
   1. device  — the card's name, count, and ``nvidia-smi`` name/power limit;
   2. build   — one ``nvcc`` per kernel source, started together, with each
-               ``-Xptxas -v`` register and shared-memory report, and the
-               instructions of one encode step's state chain, read from the
-               encode kernel's SASS;
+               ``-Xptxas -v`` register and shared-memory report, and, read
+               from the encode kernel's SASS, the instructions its chain
+               warp issues a step and those on the state's chain;
   3. kernels — each kernel against its plain torch version on the card.
                Walks: W {8..128}, n_bits {11, 16}, packed and three-table
                slot tables, on int16 streams and permutations: many short
@@ -18,9 +18,15 @@ package — in five phases, each failing loudly with a non-zero exit:
                is not a multiple of 8, with inert padding rows under
                ``covered``.  Encode scan: W {8..128} x n_bits {11, 12, 16},
                lengths under W and off a multiple of W, resume lead slots
-               with a random x0, a 4096-symbol alphabet at n = 12, an
-               adaptive context map, and a zero-frequency symbol that must
-               raise the flag.  Split planner: also against the port's
+               with a random x0; group counts around the kernel's chunk and
+               ring; ragged batches of 5 contents, static and adaptive, at
+               W 8 and 128; a 4096-symbol alphabet at n = 12 (table in
+               shared memory) and a 5000-symbol one at n = 13 (through the
+               read-only cache); an adaptive context map; zero-frequency
+               and out-of-alphabet symbols that must raise the flag, one at
+               a state of 0; the caller's encoder table, and one for
+               another n_bits, which must be refused.  Split planner: also
+               against the port's
                ``heuristic.plan_split_offsets``, on a case that needs window
                expansion and on plans of up to 2176 threads.  Outputs must
                be equal;
@@ -53,7 +59,9 @@ package — in five phases, each failing loudly with a non-zero exit:
                each 10 MB asset and the ``extend`` latency of the 1 MB delta
                (host clock around the call and a synchronize, median of 5),
                and each ingest kernel's CUDA-event device time at the main
-               path's shapes beside its bound and its plain version's time.
+               path's shapes (the encode with the executor's encoder table,
+               as the main path calls it; its cycles a group step) beside
+               its bound and its plain version's time.
 
 Prints, before the last line, the kernel table as one JSON object and the
 card's ``nvidia-smi`` line; the last line is the JSON run summary.  Exits
@@ -108,19 +116,24 @@ INGEST_REPS = 5
 # extended by the last 1 MB.
 EXTEND_AT = 9 * MB
 WINDOW = 96                   # the Def-4.1 half-window (heuristic default)
-# The encode's chain.  A way's steps are sequential (each step's state is
-# the next step's input), so a content takes at least G times the dependent
-# latency of one step's state update: the renorm compare, the select, the
-# division by f and the multiply-add.  The instructions on that chain are
-# read from encode_scan_kernel's SASS: those of its main loop (which holds
-# ENCODE_AHEAD steps) on the state register's loop-carried dependence
-# chain.  Loads, stores, index arithmetic, the loop test and the half of the
-# division that depends on f alone (its reciprocal) are off the chain.
-# Each instruction on it counts CYCLES_PER_DEPENDENT_OP cycles (the CUDA C++
-# Programming Guide's figure for a dependent arithmetic instruction; some,
-# such as IMAD.HI, take longer, so the bound is low) at the top SM clock.
-ENCODE_AHEAD = 8
-ENCODE_SASS_KERNEL = "encode_scan_kernelILb0ELb1E"   # static, table in smem
+# The encode's chain, a model of the function.  A way's steps are
+# sequential (each step's state is the next step's input), so a content
+# takes at least G times the dependent latency of one step's state update,
+# and an encode that divides by a reciprocal chains at least
+# ENCODE_STEP_OPS dependent operations a step: the renormalization compare,
+# the select, the multiply-high, the shift and the multiply-add.  Each
+# counts CYCLES_PER_DEPENDENT_OP cycles (the CUDA C++ Programming Guide's
+# figure for a dependent arithmetic instruction; some, such as IMAD.HI,
+# take longer, so the bound is low) at the top SM clock.  Phase 2 also
+# reads the chain of the kernel as built, a diagnostic beside the model:
+# the instructions of its chunk loop (ENCODE_CHUNK steps) in the SASS on
+# the state register's loop-carried dependence chain.
+ENCODE_STEP_OPS = 5
+ENCODE_CHUNK = 64
+# The static kernel with its table in shared memory, by its mangled name
+# (template arguments <false, true>, then the parameters up to the table's
+# uint4 pointer).
+ENCODE_SASS_KERNEL = "encode_scan_kernelILb0ELb1EEEvPKiPKhS2_PK5uint4"
 CYCLES_PER_DEPENDENT_OP = 4
 # The planner's chain, a model of the function (heuristic.plan_split_offsets,
 # a slot whose first round finds a candidate).  Every slot waits for the
@@ -236,28 +249,12 @@ def _sass_instructions(body: str) -> list:
     return instrs
 
 
-def _loop_chain(sass: str, kernel: str) -> tuple[int, list]:
-    """The main loop of ``kernel`` (a substring of its mangled name) in
-    ``cuobjdump -sass`` output -- the span of its widest backward branch,
-    read in address order, the path that runs every unrolled step -- and
-    its longest loop-carried dependence chain: for each register the loop
-    reads before it writes it and writes again, the longest path of
-    dependent instructions from its value at the loop's head to its value
-    at the loop's end.  Returns the loop's instruction count and the
-    opcodes of the longest such chain."""
-    for body in sass.split("Function : ")[1:]:
-        if kernel in body.split("\n", 1)[0]:
-            break
-    else:
-        fail(f"no {kernel} in the SASS")
-    instrs = _sass_instructions(body)
-    back = [(int(at, 16), int(to, 16)) for at, to in re.findall(
-        r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?BRA\s+0x([0-9a-f]+)", body)]
-    back = [(at, to) for at, to in back if to < at]
-    if not back:
-        fail(f"no loop of {kernel} found in the SASS")
-    at, to = max(back, key=lambda p: p[0] - p[1])
-    loop = [i for i in instrs if to <= i[0] <= at]
+def _carried_chain(loop: list) -> list:
+    """The longest loop-carried dependence chain of ``loop`` (instructions
+    in address order, the path that runs every unrolled step): for each
+    register the loop reads before it writes it and writes again, the
+    longest path of dependent instructions from its value at the loop's
+    head to its value at the loop's end.  Returns its opcodes."""
     written, carried = set(), []
     for _, _, _, dests, srcs in loop:
         carried += [r for r in srcs if r not in written and r not in carried]
@@ -279,12 +276,45 @@ def _loop_chain(sass: str, kernel: str) -> tuple[int, list]:
                     depth[r] = new
         if len(depth.get(seed, ())) > len(best):
             best = depth[seed]
-    return len(loop), [loop[i][2] for i in best]
+    return [loop[i][2] for i in best]
 
 
-def phase_build(libraries) -> float:
+def _loop_chain(sass: str, kernel: str) -> tuple[int, list]:
+    """The loop of ``kernel`` (a substring of its mangled name) in
+    ``cuobjdump -sass`` output -- the span of a backward branch that holds
+    no EXIT -- whose loop-carried dependence chain is the longest (for the
+    encode kernel,
+    the chain warp's chunk loop: the producer's and the writer's loops
+    carry little more than their counters).  Returns the loop's
+    instruction count and the opcodes of that chain."""
+    for body in sass.split("Function : ")[1:]:
+        if kernel in body.split("\n", 1)[0]:
+            break
+    else:
+        fail(f"no {kernel} in the SASS")
+    instrs = _sass_instructions(body)
+    back = [(int(at, 16), int(to, 16)) for at, to in re.findall(
+        r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?BRA\s+0x([0-9a-f]+)", body)]
+    # A loop's span holds no EXIT; a branch back from an out-of-line wait
+    # jumps across the kernel's exits and is not a loop.
+    exits = [i[0] for i in instrs if i[2] == "EXIT"]
+    back = [(at, to) for at, to in back
+            if to < at and not any(to <= e <= at for e in exits)]
+    if not back:
+        fail(f"no loop of {kernel} found in the SASS")
+    best = (0, [])
+    for at, to in back:
+        loop = [i for i in instrs if to <= i[0] <= at]
+        chain = _carried_chain(loop)
+        if len(chain) > len(best[1]):
+            best = (len(loop), chain)
+    return best
+
+
+def phase_build(libraries) -> tuple[float, float]:
     """Builds every kernel library at once (one nvcc each), loads them and
-    returns the instructions on one encode step's state chain."""
+    returns, from the encode kernel's SASS, the instructions on one step's
+    state chain and those its chain warp issues a step."""
     t = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
         for fut in [pool.submit(lib.build) for lib in libraries]:
@@ -303,12 +333,13 @@ def phase_build(libraries) -> float:
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
     n_loop, chain = _loop_chain(sass, ENCODE_SASS_KERNEL)
-    step = len(chain) / ENCODE_AHEAD
-    log(f"[build] encode_scan_kernel main loop: {n_loop} SASS instructions "
-        f"for {ENCODE_AHEAD} steps; the state's dependence chain: "
-        f"{len(chain)} instructions, {step:g} a step; the last step's: "
-        f"{' '.join(chain[-round(step):])}")
-    return step
+    step = len(chain) / ENCODE_CHUNK
+    log(f"[build] encode_scan_kernel chunk loop (chain warp): {n_loop} SASS "
+        f"instructions for {ENCODE_CHUNK} steps, {n_loop / ENCODE_CHUNK:g} a "
+        f"step; the state's dependence chain: {len(chain)} instructions, "
+        f"{step:g} a step (the bound's model: {ENCODE_STEP_OPS}); the last "
+        f"step's: {' '.join(chain[-round(step):])}")
+    return step, n_loop / ENCODE_CHUNK
 
 
 def _content(seed, n, ways, n_bits, n_splits):
@@ -412,55 +443,138 @@ def _encode_args(syms, model, dev, head=0, ctx=None, x0=None):
                             head, ctx, x0)
 
 
+def _encode_batch(rows, ways, dev, x0, model=None):
+    """The encode-scan wrapper's arguments for B ragged contents: ``rows``
+    of ``(head, symbols, ctx)`` numpy arrays laid out by the executor's
+    ``scan_grids``; ``x0`` u32[B, W]."""
+    from repro_torch.core.encode.executors import scan_grids
+    t = lambda a: None if a is None else torch.as_tensor(  # noqa: E731
+        np.asarray(a, np.int64).astype(np.int32), device=dev)
+    adaptive = rows[0][2] is not None
+    sym, active, ctx, x0 = scan_grids(
+        [(h, t(s), t(c)) for h, s, c in rows], ways, dev, adaptive,
+        torch.as_tensor(np.asarray(x0, np.uint32).view(np.int32),
+                        device=dev))
+    f, F = (torch.as_tensor(np.asarray(a).astype(np.int32), device=dev)
+            for a in (model.f, model.F))
+    return (sym, active, f, F, x0) + ((ctx,) if adaptive else ())
+
+
 def phase_encode_kernels(dev, errs) -> None:
     from repro_torch.core.adaptive import ContextModel
     from repro_torch.core.rans import RansParams, StaticModel
     from repro_torch.kernels.rans_encode import rans_encode as re_
     rng = np.random.default_rng(7)
-    cases = []
+    u32 = lambda *shape: rng.integers(  # noqa: E731
+        1 << 16, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
+    expo = lambda n, lam=30.0: np.minimum(  # noqa: E731
+        rng.exponential(lam, size=n).astype(np.int64), 255)
+    cases = []      # (name, args, n_bits, zero_freq flag of each content)
     for ways in (8, 16, 32, 64, 128):
         for n_bits in (11, 12, 16):
             for n, head in ((5, 0), (3_001, 3_001 % ways),
                             (ways * 40, ways - 1)):
-                syms = np.minimum(
-                    rng.exponential(30.0, size=n).astype(np.int64), 255)
+                syms = expo(n)
                 model = StaticModel.from_symbols(
                     np.concatenate([syms, np.arange(256)]), 256,
                     RansParams(n_bits=n_bits, ways=ways))
-                x0 = rng.integers(1 << 16, 1 << 32, size=ways,
-                                  dtype=np.uint64).astype(np.uint32)
                 cases.append((f"W={ways} n={n_bits} N={n} head={head}",
-                              _encode_args(syms, model, dev, head, None, x0),
-                              n_bits, False))
+                              _encode_args(syms, model, dev, head, None,
+                                           u32(ways)), n_bits, [False]))
+    # Group counts around the ring's chunk of ENCODE_CHUNK groups: under
+    # one, one, the tail just past one, two and a tail, and past the wrap
+    # of the ring's 4 stages.
+    m32 = StaticModel.from_symbols(np.concatenate([expo(5_000),
+                                                   np.arange(256)]), 256,
+                                   RansParams(n_bits=11, ways=32))
+    C = ENCODE_CHUNK
+    for G in (1, 7, 8, 9, C - 1, C, C + 1, 2 * C + 1, 4 * C + 1):
+        cases.append((f"G={G}", _encode_args(expo(G * 32 - 5), m32, dev, 3,
+                                             None, u32(32)), 11, [False]))
+    # Ragged batches of 5 contents, static and adaptive, at W 8 and 128; a
+    # static one whose content 3 opens with a zero-frequency symbol in a
+    # way whose state starts at 0 (the compare's edge: it must emit).
+    for ways in (8, 128):
+        lens = (3_001, 17, ways * 10, 999, 2)
+        heads = (0, 5, ways - 1, 0, 1)
+        rows = [(h, expo(n, 3.0), None) for h, n in zip(heads, lens)]
+        model = StaticModel.from_symbols(
+            np.concatenate([r[1] for r in rows]), 256,
+            RansParams(n_bits=11, ways=ways))
+        rows[3][1][0] = int(np.flatnonzero(model.f == 0)[0])
+        x0 = u32(5, ways)
+        x0[3, 0] = 0
+        cases.append((f"ragged static W={ways}",
+                      _encode_batch(rows, ways, dev, x0, model), 11,
+                      [False, False, False, True, False]))
+        n_ctx = 3
+        ctx_of = lambda n: (np.arange(n) % n_ctx).astype(np.int32)  # noqa
+        cm = ContextModel.from_scale_table(
+            [3.0, 8.0, 20.0], ctx_of(64), 256,
+            RansParams(n_bits=11, ways=ways))
+        rows = [(h, expo(n), ctx_of(n)) for h, n in zip(heads, lens)]
+        cases.append((f"ragged adaptive W={ways}",
+                      _encode_batch(rows, ways, dev, u32(5, ways), cm), 11,
+                      [False] * 5))
     wide = rng.integers(0, 4096, size=20_000)
     m12 = StaticModel.from_symbols(np.concatenate([wide, np.arange(4096)]),
                                    4096, RansParams(n_bits=12, ways=32))
-    cases.append(("4096-symbol alphabet", _encode_args(wide, m12, dev), 12,
-                  False))
+    cases.append(("4096-symbol alphabet (table in shared memory, > 48 KB)",
+                  _encode_args(wide, m12, dev, 7, None, u32(32)), 12,
+                  [False]))
+    wider = rng.integers(0, 5000, size=20_000)
+    m13 = StaticModel.from_symbols(np.concatenate([wider, np.arange(5000)]),
+                                   5000, RansParams(n_bits=13, ways=32))
+    cases.append(("5000-symbol alphabet (table through __ldg)",
+                  _encode_args(wider, m13, dev, 0, None, u32(32)), 13,
+                  [False]))
     n = 9_003
     ctx = (np.arange(n) % 4).astype(np.int32)
     cm = ContextModel.from_scale_table([3.0, 8.0, 20.0, 60.0], ctx, 256,
                                        RansParams(n_bits=11, ways=32))
-    syms = np.minimum(rng.exponential(30.0, size=n).astype(np.int64), 255)
-    cases.append(("adaptive", _encode_args(syms, cm, dev, ctx=ctx), 11,
-                  False))
-    skew = np.minimum(rng.exponential(3.0, size=2_000).astype(np.int64), 255)
+    cases.append(("adaptive", _encode_args(expo(n), cm, dev, ctx=ctx), 11,
+                  [False]))
+    skew = expo(2_000, 3.0)
     mz = StaticModel.from_symbols(skew, 256, RansParams(n_bits=11, ways=32))
     missing = int(np.flatnonzero(mz.f == 0)[-1])
     skew[777] = missing
-    cases.append(("zero frequency", _encode_args(skew, mz, dev), 11, True))
+    cases.append(("zero frequency", _encode_args(skew, mz, dev), 11, [True]))
+    # Symbols outside the alphabet, which the session never passes: the
+    # wrapper takes them as f = 0, as the plain version does.
+    args = _encode_args(expo(2_000), mz, dev)
+    args[0].view(-1)[[5, 900]] = torch.tensor([-2, 300], dtype=torch.int32,
+                                              device=dev)
+    cases.append(("out-of-alphabet symbols", args, 11, [True]))
     for name, args, n_bits, flagged in cases:
         got = re_.encode_scan(*args, n_bits=n_bits)
         want = re_.encode_scan_plain(*args, n_bits=n_bits)
         for g, w in zip(got, want):
             _compare("encode_scan", g, w, errs)
-        if bool(got[4][0]) != flagged:
-            fail(f"encode_scan zero-frequency flag wrong on {name}")
+        if got[4].tolist() != flagged:
+            fail(f"encode_scan zero-frequency flags wrong on {name}")
+    # The executor's table, passed as the main path passes it, and one built
+    # for another n_bits, which must be refused.
+    args = _encode_args(expo(3_000), m32, dev)
+    table = re_.encoder_table(args[2], args[3], 11)
+    for g, w in zip(re_.encode_scan(*args, n_bits=11, table=table),
+                    re_.encode_scan_plain(*args, n_bits=11)):
+        _compare("encode_scan", g, w, errs)
+    try:
+        re_.encode_scan(*args, n_bits=11,
+                        table=re_.encoder_table(args[2], args[3], 12))
+    except ValueError:
+        pass
+    else:
+        fail("encode_scan took a table built for another n_bits")
     torch.cuda.synchronize()
-    log(f"[kernels] encode_scan: {len(cases)} cases (W 8..128 x n 11/12/16 "
-        "x lengths under W and off a multiple of W, lead slots and random "
-        "x0; 4096-symbol alphabet; adaptive; zero frequency flagged) equal "
-        f"the plain version; max |err| {errs['encode_scan']}")
+    log(f"[kernels] encode_scan: {len(cases) + 1} cases (W 8..128 x n "
+        "11/12/16 x lengths under W and off a multiple of W, lead slots and "
+        f"random x0; G 1..{4 * C + 1} around the {C}-group chunk and the "
+        "4-stage ring; ragged batches of 5, static and adaptive, W 8 and 128, a "
+        "zero-frequency symbol at x0 = 0; 4096- and 5000-symbol alphabets; "
+        "adaptive; zero frequency and out-of-alphabet symbols flagged; the "
+        "caller's table) equal the plain version; a table for another "
+        f"n_bits refused; max |err| {errs['encode_scan']}")
 
 
 def phase_plan_kernels(dev, errs) -> None:
@@ -937,7 +1051,7 @@ def _profile_ingest(svc, symbols) -> None:
         log(f"[profile]   host   {ms:9.3f} ms  x{n:<5d} {key[:90]}")
 
 
-def phase_ingest_times(svc, assets, launches, errs, smi, step_chain):
+def phase_ingest_times(svc, assets, launches, errs, smi, sass):
     """Warm ingest and extend latency through the service, then each ingest
     kernel at the main path's shapes (the expo asset, 2176 splits): held
     against its plain version on the same arguments, CUDA-event device
@@ -965,19 +1079,23 @@ def phase_ingest_times(svc, assets, launches, errs, smi, step_chain):
     B, G, W = sym.shape
     clock = _sm_clock_hz()
     enc_args = (sym, active, f, F, x0)
-    got = re_.encode_scan(*enc_args, n_bits=N_BITS)
+    # The call the main path makes: with the executor's encoder records, so
+    # no table is built inside the timed calls.
+    table = coder.executor.table
+    got = re_.encode_scan(*enc_args, n_bits=N_BITS, table=table)
     want = []
     plain_ms, _ = cuda_ms(lambda: want.extend(re_.encode_scan_plain(
         *enc_args, n_bits=N_BITS)), 1, warm=False)
     for g, w in zip(got, want):
         _compare("encode_scan", g, w, errs)
-    ms, _ = cuda_ms(lambda: re_.encode_scan(*enc_args, n_bits=N_BITS),
-                    INGEST_REPS)
+    ms, _ = cuda_ms(lambda: re_.encode_scan(*enc_args, n_bits=N_BITS,
+                                            table=table), INGEST_REPS)
     # Bytes: 4 B symbol and 1 B flag in, 2 B word, 1 B mask and 4 B y out
-    # per grid slot, x0 and the final states, the (f, F) table.
-    nbytes = B * G * W * (4 + 1 + 2 + 1 + 4) + B * W * 8 + f.numel() * 8
+    # per grid slot, x0 and the final states, the 16-byte records.
+    nbytes = B * G * W * (4 + 1 + 2 + 1 + 4) + B * W * 8 + \
+        table.records.numel() * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    chain_ms = G * step_chain * CYCLES_PER_DEPENDENT_OP / clock * 1e3
+    chain_ms = G * ENCODE_STEP_OPS * CYCLES_PER_DEPENDENT_OP / clock * 1e3
     rows = [{"name": "encode_scan", "route": "cuda",
              "source": SOURCES["encode_scan"],
              "replaces": REPLACES["encode_scan"],
@@ -986,13 +1104,18 @@ def phase_ingest_times(svc, assets, launches, errs, smi, step_chain):
              "plain_ms": plain_ms, "bound_ms": max(bytes_ms, chain_ms),
              "bound_by": "bytes" if bytes_ms >= chain_ms else "operations",
              "library_ms": None, "bound_bytes": nbytes}]
-    log(f"[times] encode_scan on expo ({G} groups x {W} ways): {ms:.4f} ms "
-        f"({ms / G * 1e6:.1f} ns a group step); bound "
-        f"{rows[0]['bound_ms']:.4f} ms ({rows[0]['bound_by']}: chain_ms "
-        f"{G} steps x {step_chain:g} dependent SASS instructions x "
-        f"{CYCLES_PER_DEPENDENT_OP} cycles at {clock / 1e6:.0f} MHz = "
-        f"{chain_ms:.4f} ms; bytes_ms {nbytes} B = {bytes_ms:.4f} ms); plain "
-        f"version {plain_ms:.1f} ms; card: {smi}")
+    # Cycles a group step: the measured time at the top SM clock that
+    # nvidia-smi reports, not a cycle count.
+    log(f"[times] encode_scan on expo ({G} groups x {W} ways, the "
+        f"executor's table): {ms:.4f} ms ({ms / G * 1e6:.1f} ns a group "
+        f"step, {ms * 1e-3 * clock / G:.1f} cycles a group step at the top "
+        f"SM clock, {clock / 1e6:.0f} MHz); bound {rows[0]['bound_ms']:.4f} ms "
+        f"({rows[0]['bound_by']}: chain_ms, a model: {G} steps x "
+        f"{ENCODE_STEP_OPS} dependent operations x {CYCLES_PER_DEPENDENT_OP} "
+        f"cycles = {chain_ms:.4f} ms; the build's SASS: {sass[0]:g} "
+        f"instructions a step on the state's chain, {sass[1]:g} issued by "
+        f"the chain warp; bytes_ms {nbytes} B = "
+        f"{bytes_ms:.4f} ms); plain version {plain_ms:.1f} ms; card: {smi}")
 
     words, masks, ys, _, _ = got
     csum, last, n_words = ops.emission_layout(masks)
@@ -1042,15 +1165,14 @@ def main() -> int:
     from repro_torch.kernels.rans_encode import rans_encode as re_
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    step_chain = phase_build([rd.LIBRARY, re_.LIBRARY])
+    sass = phase_build([rd.LIBRARY, re_.LIBRARY])
     errs: dict = {}
     phase_kernels(dev, errs)
     phase_encode_kernels(dev, errs)
     phase_plan_kernels(dev, errs)
     svc, assets, enc, launches = phase_main(dev, rd, re_)
     rows = phase_times(svc, assets, enc, launches, errs, smi)
-    rows += phase_ingest_times(svc, assets, launches, errs, smi,
-                               step_chain)
+    rows += phase_ingest_times(svc, assets, launches, errs, smi, sass)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ...kernels.rans_encode import rans_encode
 from .ops import ingest_pipeline
 from .plan import EncodePlan
 
@@ -77,12 +78,15 @@ def encode_scan_args(symbols, f, F, ways: int, device, head: int = 0,
 class EncodeExecutor:
     """``f_tab``/``F_tab`` are the session's device-resident frequency
     tables — ``[A]``/``[A + 1]`` for a static model, ``[C, A]``/``[C, A + 1]``
-    for a context (adaptive) model."""
+    for a context (adaptive) model.  The executor builds the model's
+    encoder records (``table``) once, here, and passes them to every
+    pipeline call."""
 
     def __init__(self, f_tab: torch.Tensor, F_tab: torch.Tensor, *,
                  n_bits: int, ways: int, adaptive: bool, window: int):
         self.f_tab = f_tab
         self.F_tab = F_tab
+        self.table = rans_encode.encoder_table(f_tab, F_tab, n_bits)
         self.n_bits = n_bits
         self.ways = ways
         self.adaptive = adaptive
@@ -140,4 +144,5 @@ class EncodeExecutor:
 
     def run(self, plan: EncodePlan) -> dict:
         return ingest_pipeline(*plan.args, n_bits=self.n_bits,
-                               ways=self.ways, window=self.window)
+                               ways=self.ways, window=self.window,
+                               table=self.table)

@@ -32,7 +32,7 @@ INT32_MAX = 2 ** 31 - 1
 
 
 def encode_scan(sym_gw, active_gw, f_tab, F_tab, n_bits: int, ways: int,
-                ctx_gw=None, x0=None):
+                ctx_gw=None, x0=None, table=None):
     """Group-stepped W-lane interleaved rANS encode (paper Eq. 1+3).
 
     ``sym_gw``/``active_gw`` (and ``ctx_gw``) are [G, W] grids, or
@@ -40,7 +40,10 @@ def encode_scan(sym_gw, active_gw, f_tab, F_tab, n_bits: int, ways: int,
     (words u16[G, W], masks bool[G, W], ys u32[G, W]))`` — with a leading
     B axis on every array for batched grids — u32 values as int32 and u16
     words as int16 bit patterns.  ``x0`` (u32[W] bits, or [B, W]) resumes
-    each way's state chain; ``None`` starts every way at 2^16.
+    each way's state chain; ``None`` starts every way at 2^16.  ``table``
+    is the model's encoder records
+    (:func:`~repro_torch.kernels.rans_encode.rans_encode.encoder_table`),
+    which the caller builds once; without it the kernel's call builds them.
     """
     single = sym_gw.dim() == 2
     if single:
@@ -55,7 +58,7 @@ def encode_scan(sym_gw, active_gw, f_tab, F_tab, n_bits: int, ways: int,
     words, masks, ys, final, zero_freq = rans_encode.encode_scan(
         sym_gw.contiguous(), active_gw.contiguous(), f_tab, F_tab,
         x0.contiguous(), None if ctx_gw is None else ctx_gw.contiguous(),
-        n_bits=n_bits)
+        n_bits=n_bits, table=table)
     if single:
         return (final[0], zero_freq[0]), (words[0], masks[0], ys[0])
     return (final, zero_freq), (words, masks, ys)
@@ -113,13 +116,14 @@ def plan_split_scan(k_of_word, csum, last, ys, n_words, n_symbols, n_splits,
 
 def ingest_pipeline(sym_gw, active_gw, f_tab, F_tab, n_symbols, n_splits,
                     ctx_gw=None, x0=None, *, n_bits: int, ways: int,
-                    window: int):
+                    window: int, table=None):
     """symbols -> (stream, emission log, final states, split plan) on the
     inputs' device, for B contents at once.
 
     ``sym_gw``/``active_gw``/``ctx_gw`` are [B, G, W] grids and
     ``n_symbols``/``n_splits`` int32[B] tensors (``n_symbols`` counts a
-    content's grid slots up to its last symbol, lead slots included).
+    content's grid slots up to its last symbol, lead slots included), and
+    ``table`` the model's encoder records, as in :func:`encode_scan`.
     Returns a dict of tensors with a leading B axis; ``n_words`` also comes
     back as a list of ints, since sizing the compacted stream needs it on
     the host anyway.  The stream and the permutation are zero-padded to the
@@ -127,7 +131,8 @@ def ingest_pipeline(sym_gw, active_gw, f_tab, F_tab, n_symbols, n_splits,
     counts, so a content's rows serve as its resident copies as they are.
     """
     (final, zero_freq), (words, masks, ys) = encode_scan(
-        sym_gw, active_gw, f_tab, F_tab, n_bits, ways, ctx_gw=ctx_gw, x0=x0)
+        sym_gw, active_gw, f_tab, F_tab, n_bits, ways, ctx_gw=ctx_gw, x0=x0,
+        table=table)
     B = masks.shape[0]
     csum, last, n_words_t = emission_layout(masks)
     n_words = n_words_t.tolist()

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``EncoderSession``.  The session owns:
 
   * the device-resident frequency tables, uploaded once at construction
-    (static ``[A]`` or adaptive ``[C, A]``);
+    (static ``[A]`` or adaptive ``[C, A]``), and the encoder records its
+    executor builds from them once, for every encode it runs;
   * the resume LRU that :meth:`extend` reads;
   * request accounting (:class:`EncodeStats`).
 

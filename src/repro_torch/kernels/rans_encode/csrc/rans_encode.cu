@@ -9,30 +9,64 @@
 // and compute exactly what those functions compute (the emission layout and
 // compaction between them stay ordinary torch code).
 //
-// encode_scan_kernel.  One thread per (content, way j); the thread walks its
-// way's state chain over the groups g = 0 .. G-1 with the u32 state in a
-// register:
-//   renorm = active && (x >> (32 - n)) >= f
-//   x1     = renorm ? x >> 16 : x            (emits the word x & 0xFFFF)
-//   x      = active ? ((x1 / f) << n) + F + x1 % f : x1
-// and writes the group's word, emit mask and bounded state y = x1 in the
-// (content, group, way) grid the compaction reads.  Ways never interact, so
-// a content has W threads of parallelism and G dependent steps.  The static
-// model's (f, F) table (alphabet <= 4096) is staged in shared memory; an
-// adaptive model's [C, A] tables and larger alphabets are read through the
-// read-only data cache.  Symbols, active flags and context ids do not depend
-// on the state, so each thread loads them 8 groups ahead of its chain.
-// Inactive lanes (padding and resume lead slots) and out-of-alphabet
-// symbols divide by max(f, 1); an active symbol with f == 0, or outside the
-// alphabet, sets the content's zero_freq flag.
+// encode_scan_kernel.  Each lane (content b, way j) walks its way's state
+// chain over the groups g = 0 .. G-1; ways never interact, so a content has
+// W lanes of parallelism and G dependent steps.  The division by f is off
+// the chain: the encoder owns a table of 16-byte records, one per (context,
+// symbol), built once per model by rans_encode.py's encoder_table:
+//   thr  = ~(xmax >> 1), xmax = min(f 2^(32-n), 2^32) - 1
+//   mlo  = ceil(2^(32+s) / f) - 2^32   the 33-bit magic multiplier of
+//                                      Granlund-Montgomery, s = ceil(log2 f)
+//   bias = F
+//   cs   = (2^n - f) << 5 | s          (the complement, signed, and s)
+// and one step is
+//   x1 = x > xmax ? x >> 16 : x                    (emits x & 0xFFFF)
+//   q  = (x1 + umulhi(x1, mlo)) >> s               (33-bit sum: floor(x1/f))
+//   x  = x1 + bias + q (2^n - f)
+// which is the plain version's x1 + (x1 / f)(2^n - f) + F.  xmax is odd
+// (its low 16 bits are ones), so x > xmax exactly when (x >> 1) + thr, as a
+// signed 32-bit value, is >= 0: the step tests a sign and selects with a
+// mask, and no predicate sits on the chain.  A symbol with f = 0 always
+// renormalizes (thr = 0) and divides by 1 (mlo = s = 0, complement
+// 2^n - 1); thr = 0 marks exactly those records, which set zero_freq.
+// Each context has one more record, for out-of-alphabet symbols (f = 0,
+// bias = F[c, 0]), and the table one more, for inactive slots (padding and
+// resume lead slots: thr = -2^31, never renormalize; mlo = bias = cs = 0,
+// so x passes through).
 //
-// What bounds it on the H100: the chain.  Each step's state update is a
-// compare, a select, a 32-bit division and a multiply-add, each dependent
-// on the one before and the first on the previous step's state, so a
-// content takes at least G times that chain's dependent latency; the bytes
-// (4 B symbol, 1 B flag in; 2 B word, 1 B mask, 4 B y out per symbol) are
-// far below that at 3.35 TB/s.  The design keeps the chain free of memory latency (the loads
-// run ahead, the table sits in shared memory, the stores are not waited on).
+// The block is warp-specialized over 32 consecutive lanes t = b W + j, each
+// warp on its own scheduler, with rings of kChunk-group stages in shared
+// memory handed on by mbarriers:
+//   warp 0, producer: copies each chunk's symbol, flag and (adaptive)
+//       context rows into a raw ring with cp.async (16 bytes for four
+//       lanes' symbols or contexts, 4 for their flags), kRaw - 1 chunks
+//       ahead, one commit group a chunk.  Once a thread's copies of a
+//       chunk have landed it turns those slots into their records' byte
+//       offsets (the index arithmetic: context row, out-of-alphabet and
+//       inactive slots) in the offset ring, and the warp arrives on the
+//       stage's full barrier; a stage is refilled once the writer has
+//       emptied it.
+//   warp 1, chain: holds the 32 states.  A chunk's kChunk steps run
+//       unrolled with no branch: each stores the pre-renormalization state
+//       x into the stage, reads the record offset 2 kAhead steps ahead and
+//       the record (from shared memory for a static model of at most
+//       kSmemAlphabet symbols, else through __ldg) kAhead steps ahead, and
+//       updates the state.  It waits for the next stage before a chunk's
+//       first step, so the look-ahead runs on across the chunk's end.  The
+//       last G mod kChunk groups run in a separate tail loop.
+//   warp 2, writer: from the stage's x and the same record derives
+//       word = x & 0xFFFF, mask = the step's renormalization (never on an
+//       inactive slot) and y = mask ? x >> 16 : x, and stores four lanes'
+//       words, masks and ys with one 8-, 4- and 16-byte store each.
+// Four lanes' slots are contiguous and aligned when W is a multiple of 4
+// and the tensors are 16-byte aligned, which the wrapper checks.
+//
+// What bounds it on the H100: the chain.  A step's state update is the
+// sign test, its mask and the select, a multiply-high, the 33-bit sum's
+// carry and shift and a multiply-add, each dependent on the one before;
+// the bytes (4 B symbol, 1 B flag in; 2 B word, 1 B mask, 4 B y out per
+// slot) are far below that at 3.35 TB/s.  The design leaves the chain warp
+// little else to issue.
 //
 // plan_splits_kernel.  One block per content; the block runs the greedy
 // split slots in order (each slot depends on the c_prev and min_q of the one
@@ -66,99 +100,315 @@
 
 namespace {
 
-constexpr int kEncodeBlock = 128;
-constexpr int kAhead = 8;              // groups loaded ahead of the chain
-constexpr int kSmemAlphabet = 4096;    // (f, F) pairs staged: 32 KB
+constexpr int kLanes = 32;             // lanes (content, way) of one block
+constexpr int kChunk = 64;             // groups of one ring stage
+constexpr int kStages = 4;             // stages of the offset and x rings
+constexpr int kRaw = 3;                // stages of the raw ring
+constexpr int kStage = kChunk * kLanes;
+constexpr int kAhead = 2;              // records the chain loads ahead
+constexpr int kEncodeThreads = 3 * 32;  // producer, chain and writer warps
+constexpr int kSmemAlphabet = 4096;    // static tables staged in smem
 constexpr int kPlanBlock = 256;
 constexpr int kRounds = 8;             // the oracle's retry budget
 constexpr unsigned long long kNone = ~0ull;
 
-template <bool ADAPTIVE, bool SMEM_TABLE>
-__global__ void __launch_bounds__(kEncodeBlock) encode_scan_kernel(
-    const int32_t* __restrict__ sym, const uint8_t* __restrict__ active,
-    const int32_t* __restrict__ ctx, const int32_t* __restrict__ f_tab,
-    const int32_t* __restrict__ F_tab, int alphabet, int n_ctx,
-    int F_stride, const uint32_t* __restrict__ x0, int n_lanes, int G,
-    int W, int n_bits, uint16_t* __restrict__ words,
-    uint8_t* __restrict__ masks, uint32_t* __restrict__ ys,
-    uint32_t* __restrict__ final_states, int32_t* __restrict__ zero_freq) {
-  extern __shared__ int2 s_tab[];
-  if (SMEM_TABLE) {
-    for (int i = threadIdx.x; i < alphabet; i += blockDim.x)
-      s_tab[i] = make_int2(f_tab[i], F_tab[i]);
-    __syncthreads();
-  }
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_lanes) return;
-  const int b = t / W;
-  const size_t base = static_cast<size_t>(b) * G * W + (t - b * W);
-  const uint32_t shift = 32u - n_bits;
-  uint32_t x = x0[t];
-  bool bad = false;
+// Shared memory of one encode block: the staged table (or none), the raw
+// ring the producer copies into (symbols, contexts when adaptive, flags)
+// and the rings it hands on (each slot's record offset, and the chain's
+// pre-renormalization state).
+struct EncodeSmem {
+  uint4* table;
+  int32_t* sym;
+  int32_t* ctx;
+  uint8_t* act;
+  uint32_t* code;
+  uint32_t* x;
+};
 
-  int s_nxt[kAhead], c_nxt[kAhead];
-  uint8_t a_nxt[kAhead];
-  auto load = [&](int g0) {
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      const int g = g0 + u;
-      const size_t idx = base + static_cast<size_t>(g) * W;
-      const bool in = g < G;
-      s_nxt[u] = in ? sym[idx] : 0;
-      a_nxt[u] = in ? active[idx] : 0;
-      c_nxt[u] = (ADAPTIVE && in) ? ctx[idx] : 0;
-    }
-  };
-  load(0);
-#pragma unroll 1
-  for (int g0 = 0; g0 < G; g0 += kAhead) {
-    int s_cur[kAhead], c_cur[kAhead];
-    uint8_t a_cur[kAhead];
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      s_cur[u] = s_nxt[u];
-      a_cur[u] = a_nxt[u];
-      c_cur[u] = c_nxt[u];
-    }
-    if (g0 + kAhead < G) load(g0 + kAhead);
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      const int g = g0 + u;
-      if (g >= G) break;
-      const size_t idx = base + static_cast<size_t>(g) * W;
-      const int s = s_cur[u];
-      const bool act = a_cur[u] != 0;
-      const bool in_alpha = static_cast<unsigned>(s) <
-                            static_cast<unsigned>(alphabet);
-      const int sc = in_alpha ? s : 0;
-      uint32_t f, F;
-      if (ADAPTIVE) {
-        const int c = min(max(c_cur[u], 0), n_ctx - 1);
-        f = __ldg(f_tab + static_cast<size_t>(c) * alphabet + sc);
-        F = __ldg(F_tab + static_cast<size_t>(c) * F_stride + sc);
-      } else if (SMEM_TABLE) {
-        const int2 e = s_tab[sc];
-        f = e.x;
-        F = e.y;
-      } else {
-        f = __ldg(f_tab + sc);
-        F = __ldg(F_tab + sc);
-      }
-      if (!in_alpha) f = 0;
-      bad |= act && f == 0;
-      const bool renorm = act && (x >> shift) >= f;
-      const uint32_t x1 = renorm ? x >> 16 : x;
-      const uint32_t fd = f > 1u ? f : 1u;
-      const uint32_t q = x1 / fd;
-      const uint32_t enc = (q << n_bits) + F + (x1 - q * fd);
-      words[idx] = static_cast<uint16_t>(x & 0xFFFFu);
-      masks[idx] = renorm;
-      ys[idx] = x1;
-      x = act ? enc : x1;
+template <bool ADAPTIVE>
+constexpr size_t encode_smem_bytes(int n_table_records) {
+  return static_cast<size_t>(n_table_records) * 16 +
+         static_cast<size_t>(kRaw) * kStage * (ADAPTIVE ? 9 : 5) +
+         static_cast<size_t>(kStages) * kStage * 8;
+}
+
+template <bool ADAPTIVE>
+__device__ EncodeSmem encode_smem(unsigned char* base, int n_table_records) {
+  EncodeSmem s;
+  s.table = reinterpret_cast<uint4*>(base);
+  s.code = reinterpret_cast<uint32_t*>(s.table + n_table_records);
+  s.x = s.code + kStages * kStage;
+  s.sym = reinterpret_cast<int32_t*>(s.x + kStages * kStage);
+  s.ctx = s.sym + kRaw * kStage;
+  s.act = reinterpret_cast<uint8_t*>(s.ctx + (ADAPTIVE ? kRaw * kStage : 0));
+  return s;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+// Waits until the phase of ``bar`` with parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Whether state x renormalizes under a record whose first word is thr.
+__device__ __forceinline__ bool renormalizes(uint32_t x, uint32_t thr) {
+  return static_cast<int32_t>((x >> 1) + thr) >= 0;
+}
+
+// One encode step from the slot's record (thr, mlo, bias, cs).  The
+// renormalization selects with a sign mask; the 33-bit sum x1 + umulhi(x1,
+// mlo) and its shift are written in PTX (a multiply-high-add with carry
+// out, the carry, a funnel shift), which ptxas keeps to four dependent
+// instructions.
+__device__ __forceinline__ uint32_t encode_step(uint32_t x, uint4 r) {
+  const uint32_t keep = static_cast<uint32_t>(
+      static_cast<int32_t>((x >> 1) + r.x) >> 31);   // ~0: no renormalization
+  const uint32_t x1 = (x & keep) | ((x >> 16) & ~keep);
+  uint32_t out;
+  asm("{\n .reg .u32 lo, hi, q, c, b;\n"
+      " mad.hi.cc.u32 lo, %1, %2, %1;\n"
+      " addc.u32 hi, 0, 0;\n"
+      " shf.r.wrap.b32 q, lo, hi, %4;\n"
+      " shr.s32 c, %4, 5;\n"
+      " add.u32 b, %1, %3;\n"
+      " mad.lo.u32 %0, q, c, b;\n}"
+      : "=r"(out)
+      : "r"(x1), "r"(r.y), "r"(r.z), "r"(r.w));
+  return out;
+}
+
+template <bool ADAPTIVE, bool SMEM_TABLE>
+__global__ void __launch_bounds__(kEncodeThreads) encode_scan_kernel(
+    const int32_t* __restrict__ sym, const uint8_t* __restrict__ active,
+    const int32_t* __restrict__ ctx, const uint4* __restrict__ table,
+    int alphabet, int n_ctx, const uint32_t* __restrict__ x0, int n_lanes,
+    int G, int W, uint16_t* __restrict__ words, uint8_t* __restrict__ masks,
+    uint32_t* __restrict__ ys, uint32_t* __restrict__ final_states,
+    int32_t* __restrict__ zero_freq) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t full[kStages], xready[kStages], empty[kStages];
+  const int inactive = n_ctx * (alphabet + 1);   // the last record
+  const EncodeSmem s = encode_smem<ADAPTIVE>(
+      smem, SMEM_TABLE ? inactive + 1 : 0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 32);
+      mbar_init(&xready[i], 32);
+      mbar_init(&empty[i], 32);
     }
   }
-  final_states[t] = x;
-  if (bad) zero_freq[b] = 1;   // every writer stores the same value
+  if (SMEM_TABLE) {
+    for (int i = threadIdx.x; i <= inactive; i += blockDim.x)
+      s.table[i] = __ldg(table + i);
+  }
+  // The chain reads offsets a few rows past a chunk's last one (the next
+  // stage's, or rows a short chunk leaves unwritten) and loads their
+  // records; an offset the producer never wrote must still be a record's.
+  for (int i = threadIdx.x; i < kStages * kStage; i += blockDim.x)
+    s.code[i] = 0;
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_full = G / kChunk, n_tail = G - n_full * kChunk;
+  const int n_chunks = n_full + (n_tail > 0);
+  // A slot's record, by its byte offset in the table.
+  auto record = [&](uint32_t off) {
+    return SMEM_TABLE
+               ? *reinterpret_cast<const uint4*>(
+                     reinterpret_cast<const unsigned char*>(s.table) + off)
+               : __ldg(reinterpret_cast<const uint4*>(
+                     reinterpret_cast<const unsigned char*>(table) + off));
+  };
+
+  if (warp == 1) {
+    // The chain.  cd holds the record offsets of the next 2 kAhead steps
+    // and r the records of the next kAhead, loaded across chunk ends: the
+    // warp waits for the next stage before a chunk's first step, so the
+    // chunk's last steps read it with no branch.  A step stores its x
+    // first: shared memory loads keep their place after a store they might
+    // alias, so the loads for later steps issue where they are written, as
+    // soon as x is known, and not next to their use.
+    const int t = blockIdx.x * kLanes + lane;
+    uint32_t x = t < n_lanes ? x0[t] : 0u;
+    uint32_t cd[2 * kAhead];
+    uint4 r[kAhead];
+    if (n_chunks > 0) {
+      mbar_wait(&full[0], 0);
+#pragma unroll
+      for (int u = 0; u < 2 * kAhead; ++u) cd[u] = s.code[u * kLanes + lane];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) r[u] = record(cd[u]);
+    }
+    for (int k = 0; k < n_full; ++k) {
+      const int at = (k % kStages) * kStage + lane;
+      const int next = ((k + 1) % kStages) * kStage + lane;
+      if (k + 1 < n_chunks)
+        mbar_wait(&full[(k + 1) % kStages], ((k + 1) / kStages) & 1);
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {   // u is a constant: no branch
+        s.x[at + u * kLanes] = x;
+        const uint4 cur = r[u % kAhead];
+        const int u2 = u + 2 * kAhead;
+        cd[u % (2 * kAhead)] = s.code[u2 < kChunk ? at + u2 * kLanes
+                                                  : next + (u2 - kChunk) * kLanes];
+        r[u % kAhead] = record(cd[(u + kAhead) % (2 * kAhead)]);
+        x = encode_step(x, cur);
+      }
+      mbar_arrive(&xready[k % kStages]);
+    }
+    if (n_tail > 0) {   // its stage was waited for above
+      const int k = n_full;
+      const int at = (k % kStages) * kStage + lane;
+#pragma unroll 1
+      for (int u = 0; u < n_tail; ++u) {
+        const int i = at + u * kLanes;
+        s.x[i] = x;
+        x = encode_step(x, record(s.code[i]));
+      }
+      mbar_arrive(&xready[k % kStages]);
+    }
+    if (t < n_lanes) final_states[t] = x;
+    return;
+  }
+
+  // Producer and writer: each thread takes four lanes (a quad q, one
+  // content's ways j .. j + 3) of rows r0, r0 + 4, ... of a chunk.
+  const int q = lane & 7, r0 = lane >> 3;
+  const int t = blockIdx.x * kLanes + 4 * q;
+  const bool here = t < n_lanes;
+  const int b = here ? t / W : 0;
+  const int e0 = here ? b * G * W + (t - b * W) : 0;   // B G W < 2^31
+
+  if (warp == 0) {
+    // The producer: copies into the raw ring kRaw - 1 chunks ahead; once a
+    // chunk's copies have landed, the record offset of each of its slots.
+    auto copy = [&](int k) {
+      if (k < n_chunks && here) {
+        const int st = (k % kRaw) * kStage;
+        const int rows = min(kChunk, G - k * kChunk);
+        for (int r = r0; r < rows; r += 4) {
+          const int e = e0 + (k * kChunk + r) * W;
+          const int at = st + r * kLanes + 4 * q;
+          cp_async16(s.sym + at, sym + e);
+          cp_async4(s.act + at, active + e);
+          if (ADAPTIVE) cp_async16(s.ctx + at, ctx + e);
+        }
+      }
+      cp_async_commit();   // an empty group keeps the count in step
+    };
+    for (int k = 0; k < kRaw - 1; ++k) copy(k);
+    for (int k = 0; k < n_chunks; ++k) {
+      copy(k + kRaw - 1);
+      cp_async_wait<kRaw - 1>();   // this thread's copies of chunk k
+      const int st = k % kStages;
+      if (k >= kStages) mbar_wait(&empty[st], ((k / kStages) - 1) & 1);
+      const int rows = min(kChunk, G - k * kChunk);
+#pragma unroll 4
+      for (int r = r0; r < rows; r += 4) {
+        const int raw = (k % kRaw) * kStage + r * kLanes + 4 * q;
+        const int4 sv = *reinterpret_cast<const int4*>(s.sym + raw);
+        const uint32_t av = *reinterpret_cast<const uint32_t*>(s.act + raw);
+        const int4 cv = ADAPTIVE ? *reinterpret_cast<const int4*>(s.ctx + raw)
+                                 : make_int4(0, 0, 0, 0);
+        const int sy[4] = {sv.x, sv.y, sv.z, sv.w};
+        const int cx[4] = {cv.x, cv.y, cv.z, cv.w};
+        uint32_t off[4];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          // Symbols outside the alphabet take their context's last record,
+          // inactive slots (and lanes past the last content) the table's.
+          const int row =
+              ADAPTIVE ? min(max(cx[v], 0), n_ctx - 1) * (alphabet + 1) : 0;
+          const int sc = static_cast<int>(min(static_cast<uint32_t>(sy[v]),
+                                              static_cast<uint32_t>(alphabet)));
+          const bool act = here && ((av >> (8 * v)) & 0xFFu) != 0u;
+          off[v] = static_cast<uint32_t>(act ? row + sc : inactive) *
+                   sizeof(uint4);
+        }
+        *reinterpret_cast<uint4*>(s.code + st * kStage + r * kLanes + 4 * q) =
+            make_uint4(off[0], off[1], off[2], off[3]);
+      }
+      mbar_arrive(&full[st]);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // The writer.
+  bool bad = false;
+  for (int k = 0; k < n_chunks; ++k) {
+    const int st = k % kStages;
+    const uint32_t parity = (k / kStages) & 1;
+    mbar_wait(&full[st], parity);
+    mbar_wait(&xready[st], parity);
+    const int rows = min(kChunk, G - k * kChunk);
+    if (here) {
+      for (int r = r0; r < rows; r += 4) {
+        const int at = st * kStage + r * kLanes + 4 * q;
+        const uint4 xv = *reinterpret_cast<const uint4*>(s.x + at);
+        const uint4 cv = *reinterpret_cast<const uint4*>(s.code + at);
+        const uint32_t x[4] = {xv.x, xv.y, xv.z, xv.w};
+        const uint32_t c[4] = {cv.x, cv.y, cv.z, cv.w};
+        uint32_t y[4], m = 0;
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const uint32_t thr = record(c[v]).x;
+          const bool emit = renormalizes(x[v], thr);
+          bad |= thr == 0u;
+          y[v] = emit ? x[v] >> 16 : x[v];
+          m |= static_cast<uint32_t>(emit) << (8 * v);
+        }
+        const int e = e0 + (k * kChunk + r) * W;
+        *reinterpret_cast<uint2*>(words + e) =
+            make_uint2(__byte_perm(x[0], x[1], 0x5410),
+                       __byte_perm(x[2], x[3], 0x5410));
+        *reinterpret_cast<uint32_t*>(masks + e) = m;
+        *reinterpret_cast<uint4*>(ys + e) = make_uint4(y[0], y[1], y[2], y[3]);
+      }
+    }
+    mbar_arrive(&empty[st]);
+  }
+  if (here && bad) zero_freq[b] = 1;   // every writer stores the same value
 }
 
 // Block-wide minimum of a 64-bit key; every thread returns it.
@@ -282,39 +532,57 @@ __global__ void __launch_bounds__(kPlanBlock) plan_splits_kernel(
 }
 
 template <bool ADAPTIVE, bool SMEM_TABLE>
-void launch_encode(const int32_t* sym, const uint8_t* active,
-                   const int32_t* ctx, const int32_t* f_tab,
-                   const int32_t* F_tab, int alphabet, int n_ctx,
-                   int F_stride, const uint32_t* x0, int n_lanes, int G,
-                   int W, int n_bits, uint16_t* words, uint8_t* masks,
-                   uint32_t* ys, uint32_t* final_states, int32_t* zero_freq,
-                   cudaStream_t st) {
-  const int blocks = (n_lanes + kEncodeBlock - 1) / kEncodeBlock;
-  const size_t smem = SMEM_TABLE ? alphabet * sizeof(int2) : 0;
-  encode_scan_kernel<ADAPTIVE, SMEM_TABLE><<<blocks, kEncodeBlock, smem, st>>>(
-      sym, active, ctx, f_tab, F_tab, alphabet, n_ctx, F_stride, x0, n_lanes,
-      G, W, n_bits, words, masks, ys, final_states, zero_freq);
+int launch_encode(const int32_t* sym, const uint8_t* active,
+                  const int32_t* ctx, const uint4* table, int alphabet,
+                  int n_ctx, const uint32_t* x0, int n_lanes, int G, int W,
+                  uint16_t* words, uint8_t* masks, uint32_t* ys,
+                  uint32_t* final_states, int32_t* zero_freq,
+                  cudaStream_t st) {
+  // Past 48 KB a block's dynamic shared memory needs the kernel's opt-in,
+  // set once per process to the most any launch of it asks for.
+  static const cudaError_t opt_in = [] {
+    const cudaError_t err = cudaFuncSetAttribute(
+        encode_scan_kernel<ADAPTIVE, SMEM_TABLE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(encode_smem_bytes<ADAPTIVE>(
+            SMEM_TABLE ? kSmemAlphabet + 2 : 0)));
+    if (err != cudaSuccess) cudaGetLastError();   // returned, not left set
+    return err;
+  }();
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  const int n_records = n_ctx * (alphabet + 1) + 1;
+  const int blocks = (n_lanes + kLanes - 1) / kLanes;
+  encode_scan_kernel<ADAPTIVE, SMEM_TABLE>
+      <<<blocks, kEncodeThreads,
+         encode_smem_bytes<ADAPTIVE>(SMEM_TABLE ? n_records : 0), st>>>(
+          sym, active, ctx, table, alphabet, n_ctx, x0, n_lanes, G, W, words,
+          masks, ys, final_states, zero_freq);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C launchers, bound from Python with ctypes.  Every pointer is a
 // device pointer; u32 values travel as their bit patterns.  Each returns
-// cudaGetLastError() after its launch (0 = launched).
+// cudaGetLastError() after its launch (0 = launched), or the error that
+// kept it from launching.
 
-// sym, active, ctx: [B, G, W] (ctx == nullptr for a static model);
-// f_tab [A] or [C, A], F_tab rows of F_stride entries; x0, final_states
-// [B, W]; words, masks, ys [B, G, W]; zero_freq [B], zeroed by the caller.
+// sym, active, ctx: [B, G, W] (ctx == nullptr for a static model), W a
+// multiple of 4, 16-byte aligned; table: the encoder records, n_ctx
+// (alphabet + 1) + 1 of them (encoder_table's records, int32
+// [n_ctx * (alphabet + 1) + 1, 4]); x0, final_states [B, W];
+// words, masks, ys [B, G, W]; zero_freq [B], zeroed by the caller.  A
+// static table of at most 4096 symbols is staged in shared memory, any
+// other is read through the read-only data cache.
 extern "C" int rans_encode_scan(
-    const void* sym, const void* active, const void* ctx, const void* f_tab,
-    const void* F_tab, int alphabet, int n_ctx, int F_stride, const void* x0,
-    int n_contents, int G, int W, int n_bits, void* words, void* masks,
-    void* ys, void* final_states, void* zero_freq, void* cuda_stream) {
+    const void* sym, const void* active, const void* ctx, const void* table,
+    int alphabet, int n_ctx, const void* x0, int n_contents, int G, int W,
+    void* words, void* masks, void* ys, void* final_states, void* zero_freq,
+    void* cuda_stream) {
   const auto* s = static_cast<const int32_t*>(sym);
   const auto* a = static_cast<const uint8_t*>(active);
   const auto* c = static_cast<const int32_t*>(ctx);
-  const auto* f = static_cast<const int32_t*>(f_tab);
-  const auto* F = static_cast<const int32_t*>(F_tab);
+  const auto* tab = static_cast<const uint4*>(table);
   const auto* x = static_cast<const uint32_t*>(x0);
   auto* w = static_cast<uint16_t*>(words);
   auto* m = static_cast<uint8_t*>(masks);
@@ -324,15 +592,13 @@ extern "C" int rans_encode_scan(
   auto st = static_cast<cudaStream_t>(cuda_stream);
   const int lanes = n_contents * W;
   if (c != nullptr)
-    launch_encode<true, false>(s, a, c, f, F, alphabet, n_ctx, F_stride, x,
-                               lanes, G, W, n_bits, w, m, y, fs, zf, st);
-  else if (alphabet <= kSmemAlphabet)
-    launch_encode<false, true>(s, a, c, f, F, alphabet, 1, F_stride, x,
-                               lanes, G, W, n_bits, w, m, y, fs, zf, st);
-  else
-    launch_encode<false, false>(s, a, c, f, F, alphabet, 1, F_stride, x,
-                                lanes, G, W, n_bits, w, m, y, fs, zf, st);
-  return static_cast<int>(cudaGetLastError());
+    return launch_encode<true, false>(s, a, c, tab, alphabet, n_ctx, x, lanes,
+                                      G, W, w, m, y, fs, zf, st);
+  if (alphabet <= kSmemAlphabet)
+    return launch_encode<false, true>(s, a, c, tab, alphabet, 1, x, lanes, G,
+                                      W, w, m, y, fs, zf, st);
+  return launch_encode<false, false>(s, a, c, tab, alphabet, 1, x, lanes, G,
+                                     W, w, m, y, fs, zf, st);
 }
 
 // k_of_word [B, cap]; csum [B, G * W]; last, ys [B, G, W]; n_words,

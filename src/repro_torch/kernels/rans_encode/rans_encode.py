@@ -7,6 +7,10 @@ design): ``encode_scan_kernel`` computes the JAX package's
 ``plan_split_scan``.  They are built and loaded by the port's one recipe
 (:mod:`repro_torch.kernels.build`) and bound with ``ctypes``.
 
+The encode kernel reads a model's frequencies as a table of encoder
+records (:func:`encoder_table`), which its owner builds once and passes on
+every call.
+
 Each wrapper:
 
   * on CPU tensors runs its plain torch version (same module) and bumps
@@ -22,6 +26,7 @@ int16 bit patterns, as in the walk kernels.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -31,12 +36,13 @@ from ..build import CudaLibrary
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rans_encode.cu"
 MASK32 = 0xFFFFFFFF
 ROUNDS = 8          # the oracle's retry budget (heuristic.plan_split_offsets)
+MAX_FREQ = 1 << 16  # the largest frequency a record holds (n_bits <= 16)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rans_encode_scan.argtypes = [p, p, p, p, p, i, i, i, p, i, i, i, i,
-                                     p, p, p, p, p, p]
+    lib.rans_encode_scan.argtypes = [p, p, p, p, i, i, p, i, i, i, p, p, p,
+                                     p, p, p]
     lib.rans_encode_scan.restype = i
     lib.rans_plan_splits.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i,
                                      p, p, p, p, p]
@@ -84,6 +90,92 @@ def _raise_on(lib, err: int, name: str) -> None:
 # Encode scan
 # ---------------------------------------------------------------------------
 
+def _ctx_alphabet(f_tab) -> tuple[int, int]:
+    """``(contexts, alphabet)`` of a static ``[A]`` or adaptive ``[C, A]``
+    frequency table."""
+    return (f_tab.shape[0] if f_tab.dim() == 2 else 1), f_tab.shape[-1]
+
+
+@dataclass(frozen=True, eq=False)
+class EncoderTable:
+    """A model's encoder records (:func:`encoder_table`) with what they were
+    built for, kept on the host so that a call checks them without reading
+    the device."""
+
+    records: torch.Tensor
+    n_bits: int
+    contexts: int
+    alphabet: int
+
+
+def encoder_table(f_tab, F_tab, n_bits: int) -> EncoderTable:
+    """The encoder's records for a static ``[A]`` or adaptive ``[C, A]``
+    model (``F_tab`` ``[A + 1]`` / ``[C, A + 1]``, or wider), on
+    ``f_tab``'s device: ``records`` is int32 ``[C (A + 1) + 1, 4]`` holding
+    u32 bit patterns.
+
+    Row ``c (A + 1) + s`` is symbol s under context c, row
+    ``c (A + 1) + A`` context c's record for symbols outside the alphabet
+    (f = 0, F = ``F_tab[c, 0]``, as the plain version reads), and the last
+    row the inactive slots' record.  A record is ``(thr, mlo, bias, cs)``:
+
+      * ``thr = ~(xmax >> 1)`` with ``xmax = min(f 2^(32 - n), 2^32) - 1``:
+        the step renormalizes when x > xmax, and since xmax is odd that is
+        when ``(x >> 1) + thr``, read as a signed 32-bit value, is >= 0
+        (f = 0: thr = 0, always; the inactive record's -2^31: never);
+      * ``mlo = ceil(2^(32 + s) / f) - 2^32`` with ``s = ceil(log2 f)``:
+        Granlund and Montgomery's 33-bit magic number, so that
+        ``floor(x / f) = (x + umulhi(x, mlo)) >> s`` (the sum in 33 bits)
+        for every u32 x; f = 0 divides by 1 (mlo = s = 0), so its step is
+        ``x1 2^n + F``, as in the plain version;
+      * ``bias = F``;
+      * ``cs = (2^n - max(f, 1)) << 5 | s``, the complement as a signed
+        27-bit value above the 5-bit shift.
+
+    Frequencies must lie in [0, 2^16].
+    """
+    if not 1 <= n_bits <= 16:
+        raise ValueError(f"n_bits={n_bits} outside [1, 16]")
+    C, A = _ctx_alphabet(f_tab)
+    if F_tab.dim() != f_tab.dim() or F_tab.shape[-1] < A or A == 0 or \
+            (f_tab.dim() == 2 and F_tab.shape[0] != C):
+        raise ValueError("F_tab must have f_tab's rows and >= A >= 1 columns")
+    f = f_tab.reshape(C, A).long()
+    F = F_tab.reshape(C, -1).long()
+    lo, hi = torch.stack([f.min(), f.max()]).tolist()
+    if lo < 0 or hi > MAX_FREQ:
+        raise ValueError(f"frequencies must lie in [0, {MAX_FREQ}], got "
+                         f"[{lo}, {hi}]")
+    # The out-of-alphabet record of each context: f = 0, F = F_tab[c, 0].
+    f = torch.cat([f, f.new_zeros(C, 1)], 1)
+    F = torch.cat([F[:, :A], F[:, :1]], 1)
+    s = sum((f > (1 << k)).long() for k in range(16))      # ceil(log2 f)
+    fd = f.clamp(min=1)
+    mlo = ((1 << (32 + s)) + fd - 1) // fd - (1 << 32)
+    xmax = (f << (32 - n_bits)).clamp(max=1 << 32) - 1
+    thr = torch.where(f == 0, 0, MASK32 - (xmax >> 1))
+    cs = (((1 << n_bits) - fd) << 5) | s
+    records = torch.stack([thr, mlo, F, cs], -1).reshape(-1, 4)
+    inactive = records.new_tensor([[1 << 31, 0, 0, 0]])
+    records = _bits32(torch.cat([records, inactive]) & MASK32).contiguous()
+    return EncoderTable(records, n_bits, C, A)
+
+
+def _check_table(table, f_tab, n_bits: int, dev) -> None:
+    """Raise unless ``table`` is :func:`encoder_table`'s for a model of
+    ``f_tab``'s shape at ``n_bits``, with its records on ``dev``."""
+    if not isinstance(table, EncoderTable):
+        raise ValueError(f"table: need an EncoderTable, got "
+                         f"{type(table).__name__}")
+    C, A = _ctx_alphabet(f_tab)
+    built, need = (table.n_bits, table.contexts, table.alphabet), \
+        (n_bits, C, A)
+    if built != need:
+        raise ValueError(f"table: built for (n_bits, contexts, alphabet) = "
+                         f"{built}, the call needs {need}")
+    _check("table", table.records, torch.int32, (C * (A + 1) + 1, 4), dev)
+
+
 def encode_scan_plain(sym, active, f_tab, F_tab, x0, ctx=None, *,
                       n_bits: int):
     """The plain torch encode: a loop over groups, all contents and ways at
@@ -124,7 +216,8 @@ def encode_scan_plain(sym, active, f_tab, F_tab, x0, ctx=None, *,
     return (_bits16(xs & 0xFFFF), masks, _bits32(ys), _bits32(x), zero_freq)
 
 
-def encode_scan(sym, active, f_tab, F_tab, x0, ctx=None, *, n_bits: int):
+def encode_scan(sym, active, f_tab, F_tab, x0, ctx=None, *, n_bits: int,
+                table=None):
     """W-way interleaved rANS encode of B contents laid out as group grids.
 
     ``sym`` int32[B, G, W] (symbol of flat index g * W + j at [b, g, j]),
@@ -139,7 +232,16 @@ def encode_scan(sym, active, f_tab, F_tab, x0, ctx=None, *, n_bits: int):
     low word, whether it emitted it, its bounded post-renormalization state
     (u32 bits), each way's final state, and whether an active symbol had
     zero frequency (or lay outside the alphabet).
+
+    ``table`` is :func:`encoder_table` of ``(f_tab, F_tab, n_bits)``, built
+    once by the caller that owns the model; a table built for another
+    shape or ``n_bits`` raises.  Without one the call builds its own.  The
+    plain version reads ``f_tab`` and ``F_tab`` and not the table.  On the
+    card W must be a multiple of 4, and ``sym``, ``active``, ``ctx`` and the
+    table's records 16-byte aligned.
     """
+    if table is not None:
+        _check_table(table, f_tab, n_bits, sym.device)
     if sym.device.type == "cpu":
         encode_scan.plain_calls += 1
         return encode_scan_plain(sym, active, f_tab, F_tab, x0, ctx,
@@ -152,12 +254,13 @@ def encode_scan(sym, active, f_tab, F_tab, x0, ctx=None, *, n_bits: int):
         raise ValueError(f"n_bits={n_bits} outside [1, 16]")
     if B * G * W >= 2 ** 31 or B * W >= 2 ** 31:
         raise ValueError("the group grid must hold fewer than 2^31 slots")
+    if W % 4:
+        raise ValueError(f"the encode kernel takes W a multiple of 4, got {W}")
     _check("sym", sym, torch.int32, (B, G, W), dev)
     _check("active", active, torch.bool, (B, G, W), dev)
     _check("x0", x0, torch.int32, (B, W), dev)
     adaptive = f_tab.dim() == 2
-    A = f_tab.shape[-1]
-    n_ctx = f_tab.shape[0] if adaptive else 1
+    n_ctx, A = _ctx_alphabet(f_tab)
     _check("f_tab", f_tab, torch.int32, (n_ctx, A) if adaptive else (A,),
            dev)
     if F_tab.dim() != f_tab.dim() or F_tab.shape[-1] < A or \
@@ -170,6 +273,12 @@ def encode_scan(sym, active, f_tab, F_tab, x0, ctx=None, *, n_bits: int):
         _check("ctx", ctx, torch.int32, (B, G, W), dev)
     elif ctx is not None:
         raise ValueError("ctx given with a static table")
+    if table is None:
+        table = encoder_table(f_tab, F_tab, n_bits)
+    for name, t in (("sym", sym), ("active", active), ("ctx", ctx),
+                    ("table", table.records)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     words = torch.empty((B, G, W), dtype=torch.int16, device=dev)
     masks = torch.empty((B, G, W), dtype=torch.bool, device=dev)
     ys = torch.empty((B, G, W), dtype=torch.int32, device=dev)
@@ -179,11 +288,11 @@ def encode_scan(sym, active, f_tab, F_tab, x0, ctx=None, *, n_bits: int):
         lib = load_library()
         err = lib.rans_encode_scan(
             sym.data_ptr(), active.data_ptr(),
-            None if ctx is None else ctx.data_ptr(), f_tab.data_ptr(),
-            F_tab.data_ptr(), A, n_ctx, F_tab.shape[-1], x0.data_ptr(), B, G,
-            W, n_bits, words.data_ptr(), masks.data_ptr(), ys.data_ptr(),
-            final.data_ptr(), zero_freq.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            None if ctx is None else ctx.data_ptr(),
+            table.records.data_ptr(), A, n_ctx, x0.data_ptr(), B, G, W,
+            words.data_ptr(), masks.data_ptr(), ys.data_ptr(),
+            final.data_ptr(),
+            zero_freq.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, err, "rans_encode_scan")
         encode_scan.launches += 1
     return words, masks, ys, final, zero_freq != 0

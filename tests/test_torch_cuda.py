@@ -322,6 +322,122 @@ def test_encode_kernel_adaptive_wide_alphabet_and_zero_freq(cuda_device):
         assert bool(got[4][0]) is flagged
 
 
+def _assert_encode_equals_plain(args, n_bits, flags, table=None):
+    import torch
+    from repro_torch.kernels.rans_encode import rans_encode as re_
+    before = re_.encode_scan.launches
+    got = re_.encode_scan(*args, n_bits=n_bits, table=table)
+    want = re_.encode_scan_plain(*args, n_bits=n_bits)
+    assert re_.encode_scan.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[4].tolist() == flags
+
+
+@pytest.mark.parametrize("G", [1, 7, 8, 9, 63, 64, 65, 129, 257])
+@in_child
+def test_encode_kernel_group_counts_around_the_chunk(cuda_device, G):
+    """Group counts under, at and past the kernel's 64-group chunk and its
+    4-stage ring, with lead slots and a random x0."""
+    from repro_torch.core.encode.executors import encode_scan_args
+    from repro_torch.core.rans import RansParams, StaticModel
+    rng = np.random.default_rng(G)
+    syms = np.minimum(rng.exponential(30.0, size=G * 32 - 5).astype(
+        np.int64), 255)
+    model = StaticModel.from_symbols(np.concatenate([syms, np.arange(256)]),
+                                     256, RansParams(n_bits=11, ways=32))
+    x0 = rng.integers(1 << 16, 1 << 32, size=32, dtype=np.uint64).astype(
+        np.uint32)
+    args = encode_scan_args(syms, model.f, model.F, 32, cuda_device, head=3,
+                            x0=x0)
+    assert args[0].shape[1] == G
+    _assert_encode_equals_plain(args, 11, [False])
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("ways", [8, 128])
+@in_child
+def test_encode_kernel_ragged_batches(cuda_device, ways, adaptive):
+    """Five ragged contents in one launch (several to a block at W = 8,
+    one over four blocks at W = 128), resumed from a random x0; the static
+    batch's fourth content opens with a zero-frequency symbol in a way
+    whose state starts at 0, which must emit and flag that content only."""
+    import torch
+    from repro_torch.core.adaptive import ContextModel
+    from repro_torch.core.encode.executors import scan_grids
+    from repro_torch.core.rans import RansParams, StaticModel
+    rng = np.random.default_rng(ways + adaptive)
+    lens, heads = (3_001, 17, ways * 10, 999, 2), (0, 5, ways - 1, 0, 1)
+    syms = [np.minimum(rng.exponential(3.0, size=n).astype(np.int64), 255)
+            for n in lens]
+    params = RansParams(n_bits=11, ways=ways)
+    if adaptive:
+        model = ContextModel.from_scale_table(
+            [3.0, 8.0, 20.0], np.zeros(1, np.int32), 256, params)
+        ctxs = [(np.arange(n) % 3).astype(np.int32) for n in lens]
+        flags = [False] * 5
+    else:
+        model = StaticModel.from_symbols(np.concatenate(syms), 256, params)
+        syms[3][0] = int(np.flatnonzero(model.f == 0)[0])
+        ctxs = [None] * 5
+        flags = [False, False, False, True, False]
+    x0 = rng.integers(1 << 16, 1 << 32, size=(5, ways),
+                      dtype=np.uint64).astype(np.uint32)
+    x0[3, 0] = 0
+    dev = cuda_device
+    t = lambda a: None if a is None else torch.as_tensor(  # noqa: E731
+        a.astype(np.int32), device=dev)
+    sym, active, ctx, x0_t = scan_grids(
+        [(h, t(s), t(c)) for h, s, c in zip(heads, syms, ctxs)], ways, dev,
+        adaptive, torch.as_tensor(x0.view(np.int32), device=dev))
+    f, F = (torch.as_tensor(np.asarray(a).astype(np.int32), device=dev)
+            for a in (model.f, model.F))
+    args = (sym, active, f, F, x0_t) + ((ctx,) if adaptive else ())
+    _assert_encode_equals_plain(args, 11, flags)
+
+
+@pytest.mark.parametrize("alphabet,n_bits", [(4096, 12), (5000, 13)])
+@in_child
+def test_encode_kernel_wide_alphabets(cuda_device, alphabet, n_bits):
+    """4096 symbols: the table staged in over 48 KB of shared memory;
+    5000: read through the read-only data cache.  Resumed from a random
+    x0 behind lead slots."""
+    from repro_torch.core.encode.executors import encode_scan_args
+    from repro_torch.core.rans import RansParams, StaticModel
+    rng = np.random.default_rng(alphabet)
+    syms = rng.integers(0, alphabet, size=20_000)
+    model = StaticModel.from_symbols(
+        np.concatenate([syms, np.arange(alphabet)]), alphabet,
+        RansParams(n_bits=n_bits, ways=32))
+    x0 = rng.integers(1 << 16, 1 << 32, size=32, dtype=np.uint64).astype(
+        np.uint32)
+    args = encode_scan_args(syms, model.f, model.F, 32, cuda_device,
+                            head=7, x0=x0)
+    _assert_encode_equals_plain(args, n_bits, [False])
+
+
+@in_child
+def test_encode_wrapper_refuses_a_table_for_another_n_bits(cuda_device):
+    """The caller's table is used as given, and one built for another
+    n_bits raises before any launch."""
+    from repro_torch.core.encode.executors import encode_scan_args
+    from repro_torch.core.rans import RansParams, StaticModel
+    from repro_torch.kernels.rans_encode import rans_encode as re_
+    rng = np.random.default_rng(5)
+    syms = np.minimum(rng.exponential(30.0, size=3_000).astype(np.int64),
+                      255)
+    model = StaticModel.from_symbols(np.concatenate([syms, np.arange(256)]),
+                                     256, RansParams(n_bits=11, ways=32))
+    args = encode_scan_args(syms, model.f, model.F, 32, cuda_device)
+    _assert_encode_equals_plain(args, 11, [False],
+                                table=re_.encoder_table(args[2], args[3], 11))
+    before = re_.encode_scan.launches
+    with pytest.raises(ValueError, match="n_bits"):
+        re_.encode_scan(*args, n_bits=11,
+                        table=re_.encoder_table(args[2], args[3], 12))
+    assert re_.encode_scan.launches == before
+
+
 @in_child
 def test_plan_kernel_equals_plain_and_heuristic(cuda_device):
     """The planner kernel against its plain version and the port's

@@ -413,3 +413,207 @@ def test_ingested_content_decodes_through_port_decoder():
     up = dec.upload_stream(res.stream.words[:res.n_words].numpy().view(
         np.uint16))
     assert up.bucket == res.stream.bucket
+
+
+# ---------------------------------------------------------------------------
+# The encoder records (kernels/rans_encode encoder_table) and their owner
+# ---------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+
+
+def _step_terms(records):
+    """Encoder records' words as uint64 columns: (thr, mlo, bias, cs,
+    complement) -- the complement is cs >> 5 read as signed."""
+    rec = records.numpy().view(np.uint32).astype(np.uint64)
+    cmpl = (rec[..., 3].astype(np.uint32).view(np.int32) >> 5).astype(
+        np.int64).astype(np.uint64)
+    return rec[..., 0], rec[..., 1], rec[..., 2], rec[..., 3], cmpl
+
+
+def _quotient(x1, mlo, cs):
+    """The kernel's quotient, in uint64 with its u32 masks: the 33-bit sum
+    x1 + umulhi(x1, mlo), shifted right by cs & 31 (the funnel shift's
+    wrap), low 32 bits."""
+    s = (x1 + ((x1 * mlo) >> np.uint64(32))) >> (cs & np.uint64(31))
+    return s & np.uint64(M32)
+
+
+def _renormalizes(x, thr):
+    """(x >> 1) + thr as a signed 32-bit value is >= 0."""
+    return (((x >> np.uint64(1)) + thr) & np.uint64(M32)) < np.uint64(1 << 31)
+
+
+@pytest.mark.parametrize("n_bits", [11, 12, 16])
+@in_child
+def test_encoder_table_magic_is_exact_for_every_frequency(n_bits):
+    """For every f in [1, 2^16]: s = ceil(log2 f), the magic number meets
+    Granlund and Montgomery's condition 0 <= m f - 2^(32+s) <= 2^s, and the
+    kernel's u32 formula gives floor(x1 / f) at k f - 1 and k f for k from 1
+    to the largest u32 multiple, and at the largest dividend a step can
+    take (f 2^(32-n) - 1, or 2^32 - 1); its threshold renormalizes exactly
+    when x > xmax around xmax."""
+    import torch
+    from repro_torch.kernels.rans_encode.rans_encode import encoder_table
+    f = np.arange(1, (1 << 16) + 1, dtype=np.int64)
+    table = encoder_table(torch.as_tensor(f.astype(np.int32)),
+                          torch.zeros(f.size + 1, dtype=torch.int32), n_bits)
+    assert (table.n_bits, table.contexts, table.alphabet) == \
+        (n_bits, 1, f.size)
+    thr, mlo, _, cs, _ = _step_terms(table.records[:f.size])
+    s = (cs & np.uint64(31)).astype(np.int64)
+    want_s = np.array([(int(v) - 1).bit_length() for v in f])
+    np.testing.assert_array_equal(s, want_s)
+    m = mlo.astype(np.int64) + (1 << 32)
+    err = m * f - (np.int64(1) << (32 + s))
+    assert (err >= 0).all() and (err <= (np.int64(1) << s)).all()
+    np.testing.assert_array_equal(
+        table.records[:f.size, 3].numpy() >> 5, (1 << n_bits) - f)
+    fu = f.astype(np.uint64)
+    top = np.minimum(fu << np.uint64(32 - n_bits), np.uint64(1 << 32)) - \
+        np.uint64(1)
+    kmax = np.uint64(M32) // fu
+    rng = np.random.default_rng(n_bits)
+    ks = [np.ones_like(fu), np.full_like(fu, 2), kmax // np.uint64(2),
+          kmax - np.uint64(1), kmax,
+          np.maximum(np.uint64(1), (rng.random(f.size) * kmax).astype(
+              np.uint64))]
+    points = [top, np.zeros_like(fu)]
+    for k in ks:
+        k = np.maximum(k, np.uint64(1))
+        points += [k * fu - np.uint64(1), np.minimum(k * fu, np.uint64(M32))]
+    for x1 in points:
+        np.testing.assert_array_equal(_quotient(x1, mlo, cs), x1 // fu)
+    for x in (top - np.uint64(1), top, np.minimum(top + np.uint64(1),
+                                                  np.uint64(M32))):
+        np.testing.assert_array_equal(_renormalizes(x, thr), x > top)
+
+
+def _emulate_encode(table, sym, active, x0, ctx=None):
+    """The encode scan from the encoder records, step by step in uint64
+    with the kernel's u32 masks; returns the plain version's five outputs
+    as numpy arrays (words u16, masks, ys u32, final u32, zero_freq)."""
+    thr, mlo, bias, cs, cmpl = _step_terms(table.records)
+    C, A = table.contexts, table.alphabet
+    s = sym.numpy().astype(np.int64)
+    c = (np.zeros_like(s) if ctx is None
+         else np.clip(ctx.numpy().astype(np.int64), 0, C - 1))
+    idx = np.where(active.numpy(), c * (A + 1) + np.where(
+        (s >= 0) & (s < A), s, A), C * (A + 1))
+    x = x0.numpy().view(np.uint32).astype(np.uint64)
+    xs = np.zeros(s.shape, np.uint64)
+    for g in range(s.shape[1]):
+        i = idx[:, g]
+        xs[:, g] = x
+        x1 = np.where(_renormalizes(x, thr[i]), x >> np.uint64(16), x)
+        q = _quotient(x1, mlo[i], cs[i])
+        x = (x1 + bias[i] + q * cmpl[i]) & np.uint64(M32)
+    emit = _renormalizes(xs, thr[idx])
+    ys = np.where(emit, xs >> np.uint64(16), xs)
+    zero = (thr[idx] == 0).reshape(s.shape[0], -1).any(1)
+    return (xs & np.uint64(0xFFFF)).astype(np.uint16), emit, \
+        ys.astype(np.uint32), x.astype(np.uint32), zero
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("ways", [8, 32, 128])
+@in_child
+def test_table_driven_step_equals_plain_encode(ways, adaptive):
+    """The records, stepped as the kernel steps them, give every output of
+    ``encode_scan_plain``: three ragged contents with resume lead slots,
+    random x0 (with the edge states 0, 1, 2^16 - 1, 2^16 and 2^32 - 1, the
+    first under an active zero-frequency symbol), symbols outside the
+    alphabet, f = 0, f = 1 and f = 2^n, static or a 2-D adaptive table."""
+    import torch
+    from repro_torch.core.encode.executors import scan_grids
+    from repro_torch.kernels.rans_encode.rans_encode import (
+        encode_scan_plain, encoder_table)
+    rng = np.random.default_rng(ways + adaptive)
+    n_bits, A, C = 11, 300, (4 if adaptive else 1)
+    f = rng.integers(0, 1 << n_bits, size=(C, A))
+    f[:, 5], f[:, 7], f[:, 9] = 0, 1 << n_bits, 1
+    F = rng.integers(0, 1 << n_bits, size=(C, A + 1))
+    f_tab = torch.as_tensor(f.astype(np.int32))
+    F_tab = torch.as_tensor(F.astype(np.int32))
+    if not adaptive:
+        f_tab, F_tab = f_tab[0], F_tab[0]
+    rows = []
+    for n, head in ((ways * 7 + 3, 0), (ways * 3, ways - 1), (17, 5)):
+        syms = torch.as_tensor(rng.integers(-3, A + 3, size=n).astype(
+            np.int32))
+        ctx = (torch.as_tensor(rng.integers(-1, C + 1, size=n).astype(
+            np.int32)) if adaptive else None)
+        rows.append((head, syms, ctx))
+    rows[0][1][0] = 5                    # f = 0 at x0 = 0 in way 0
+    x0 = rng.integers(0, 1 << 32, size=(3, ways), dtype=np.uint64).astype(
+        np.uint32)
+    x0[0, :5] = [0, 1, 0xFFFF, 0x10000, M32]
+    sym, active, ctx, x0_t = scan_grids(rows, ways, "cpu", adaptive,
+                                        torch.as_tensor(x0.view(np.int32)))
+    table = encoder_table(f_tab, F_tab, n_bits)
+    got = _emulate_encode(table, sym, active, x0_t, ctx)
+    words, masks, ys, final, zero = encode_scan_plain(
+        sym, active, f_tab, F_tab, x0_t, ctx, n_bits=n_bits)
+    np.testing.assert_array_equal(got[0], words.numpy().view(np.uint16))
+    np.testing.assert_array_equal(got[1], masks.numpy())
+    np.testing.assert_array_equal(got[2], ys.numpy().view(np.uint32))
+    np.testing.assert_array_equal(got[3], final.numpy().view(np.uint32))
+    np.testing.assert_array_equal(got[4], zero.numpy())
+    assert zero.numpy()[0]               # content 0 opens with f = 0,
+    assert masks.numpy()[0, 0, 0]        # which emits even at x = 0
+
+
+@in_child
+def test_encode_executor_builds_its_table_once():
+    """The session's executor builds the encoder records once; two ingests
+    and an extend hand the wrapper that same tensor.  A table of another
+    n_bits, of another model's shape, or with records of the wrong dtype
+    raises."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.encode import EncoderSession, ops
+    from repro_torch.kernels.rans_encode import rans_encode
+    jm, _ = _shared()
+    tm, _ = _port(jm)
+    builds, tables = [], []
+    build, scan = rans_encode.encoder_table, ops.encode_scan
+
+    def counting_build(*a, **kw):
+        builds.append(1)
+        return build(*a, **kw)
+
+    def spying_scan(*a, **kw):
+        tables.append(kw["table"])
+        return scan(*a, **kw)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(rans_encode, "encoder_table", counting_build)
+    mp.setattr(ops, "encode_scan", spying_scan)
+    try:
+        sess = EncoderSession(tm, device="cpu")
+        syms = _symbols(21, 3_000)
+        sess.ingest(syms, 4, name="a")
+        sess.ingest(syms[:1_000], 2)
+        sess.extend("a", _symbols(22, 77))
+    finally:
+        mp.undo()
+    assert len(builds) == 1
+    assert len(tables) == 3
+    assert all(t is sess.executor.table for t in tables)
+    ex = sess.executor
+    args = (torch.zeros((1, 2, 32), dtype=torch.int32),
+            torch.ones((1, 2, 32), dtype=torch.bool), ex.f_tab, ex.F_tab,
+            torch.full((1, 32), 1 << 16, dtype=torch.int32))
+    with pytest.raises(ValueError, match="n_bits"):
+        rans_encode.encode_scan(*args, n_bits=11, table=build(
+            ex.f_tab, ex.F_tab, 12))
+    with pytest.raises(ValueError, match="table"):
+        rans_encode.encode_scan(*args, n_bits=11, table=build(
+            ex.f_tab[:100], ex.F_tab[:101], 11))
+    with pytest.raises(ValueError, match="table"):
+        rans_encode.encode_scan(*args, n_bits=11, table=dataclasses.replace(
+            ex.table, records=ex.table.records.long()))
+    got = rans_encode.encode_scan(*args, n_bits=11, table=ex.table)
+    want = rans_encode.encode_scan_plain(*args, n_bits=11)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
