@@ -16,7 +16,12 @@ package — in five phases, each failing loudly with a non-zero exit:
                splits, and a few long ones that cross hundreds of ring
                refills, read down to word 0 and run on streams whose length
                is not a multiple of 8, with inert padding rows under
-               ``covered``.  Encode scan: W {8..128} x n_bits {11, 12, 16},
+               ``covered``.  Then both walks through a card session,
+               each executor call against its plain walk: n_bits 8 and 14
+               at W 8, 32, 128, a 4096-symbol alphabet at n = 14 (three
+               tables), ``decode_conventional`` (pointer) and the four
+               ``tests/golden`` wire vectors (both layouts).
+               Encode scan: W {8..128} x n_bits {11, 12, 16},
                lengths under W and off a multiple of W, resume lead slots
                with a random x0; group counts around the kernel's chunk and
                ring; ragged batches of 5 contents, static and adaptive, at
@@ -25,11 +30,13 @@ package — in five phases, each failing loudly with a non-zero exit:
                read-only cache); an adaptive context map; zero-frequency
                and out-of-alphabet symbols that must raise the flag, one at
                a state of 0; the caller's encoder table, and one for
-               another n_bits, which must be refused.  Split planner: also
-               against the port's
+               another n_bits, which must be refused.  Split planner (its
+               cover, chain and emit kernels): also against the port's
                ``heuristic.plan_split_offsets``, on a case that needs window
-               expansion and on plans of up to 2176 threads.  Outputs must
-               be equal;
+               expansion, plans of up to 2176 threads, a window-2 case whose
+               slots are won in later rounds and a ragged batch of three
+               contents; the cover kernel alone against
+               ``plan_cover_plain`` on every word.  Outputs must be equal;
   4. main    — the content-delivery path at the paper's size (§5.1 Table 4:
                10 MB assets; Table 3 codec n = 11, W = 32; a 2176-thread
                split plan), starting from raw symbols on the card.  One asset
@@ -61,7 +68,10 @@ package — in five phases, each failing loudly with a non-zero exit:
                and each ingest kernel's CUDA-event device time at the main
                path's shapes (the encode with the executor's encoder table,
                as the main path calls it; its cycles a group step) beside
-               its bound and its plain version's time.
+               its bound and its plain version's time; for the planner
+               also its time a slot, the design's own model, the split of
+               its device time between its three kernels (``torch.profiler``)
+               and the round in which each slot was won.
 
 Prints, before the last line, the kernel table as one JSON object and the
 card's ``nvidia-smi`` line; the last line is the JSON run summary.  Exits
@@ -83,6 +93,7 @@ import numpy as np
 import torch
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+TESTS = os.path.join(os.path.dirname(SRC), "tests")   # torch_checks.py
 MB = 1_000_000
 N_BITS, WAYS, PLAN_THREADS = 11, 32, 2176
 THREADS = (16, 128, 2176)
@@ -147,6 +158,12 @@ CYCLES_PER_DEPENDENT_OP = 4
 # CYCLES_PER_DEPENDENT_OP cycles.  A memory read counts as one operation,
 # so the model is loose.
 PLAN_SLOT_OPS = 17
+# The planner design's own model (printed beside the bound, which keeps the
+# slot-chain basis above): its cover pass's bytes at the HBM rate, plus two
+# dependent memory round trips a slot, each PLAN_ROUND_TRIP_CYCLES at the
+# top SM clock -- an assumed latency of an L2 hit on Hopper, the model's
+# input, not a measurement.
+PLAN_ROUND_TRIP_CYCLES = 260
 # Ring geometry of csrc/rans_walk.cu at W = 32 (words of one chunk, chunks
 # of one ring), for the model of the bytes the rings copy.
 POINTER_CHUNK, SYMBOL_ROWS, RING_CHUNKS = 32, 8, 4
@@ -578,49 +595,186 @@ def phase_encode_kernels(dev, errs) -> None:
 
 
 def phase_plan_kernels(dev, errs) -> None:
+    from torch_checks import plan_inputs, won_rounds
+
     from repro_torch.core import heuristic
-    from repro_torch.core.encode import ops
-    from repro_torch.core.rans import RansParams, StaticModel
     from repro_torch.kernels.rans_encode import rans_encode as re_
-    cases = ((2, 4_000, 32, 100, 2.0), (5, 30_000, 64, 2_176, 40.0),
-             (6, 20_011, 8, 16, 40.0), (8, 300_000, 32, 2_176, 40.0),
-             (9, 12_007, 128, 8, 40.0))
-    for seed, n, ways, n_splits, lam in cases:
+
+    def expo(seed, n, lam=40.0):
         rng = np.random.default_rng(seed)
-        syms = np.minimum(rng.exponential(lam, size=n).astype(np.int64), 255)
-        model = StaticModel.from_symbols(syms, 256,
-                                         RansParams(n_bits=11, ways=ways))
-        sym, active, f, F, x0 = _encode_args(syms, model, dev)
-        words, masks, ys, _, _ = re_.encode_scan(sym, active, f, F, x0,
-                                                 n_bits=11)
-        csum, last, n_words = ops.emission_layout(masks)
-        nw = int(n_words[0])
-        _, kw, yw = ops.compact_emissions(words, ys, masks, csum, nw)
-        args = (kw, csum, last, ys, n_words.int(),
-                torch.tensor([n], dtype=torch.int32, device=dev),
-                torch.tensor([n_splits], dtype=torch.int32, device=dev))
-        st = dict(window=WINDOW, n_slots=n_splits - 1)
+        return np.minimum(rng.exponential(lam, size=n).astype(np.int64), 255)
+
+    # (contents, W, n_splits of each, window): a window-expansion trigger,
+    # W 8..128, up to 2176 splits, a window-2 case whose slots are won in
+    # later rounds, and a ragged batch of three (one split; no word; slots
+    # past a content's M - 1).
+    cases = (([expo(2, 4_000, 2.0)], 32, [100], WINDOW),
+             ([expo(5, 30_000)], 64, [2_176], WINDOW),
+             ([expo(6, 20_011)], 8, [16], WINDOW),
+             ([expo(8, 300_000)], 32, [2_176], WINDOW),
+             ([expo(9, 12_007)], 128, [8], WINDOW),
+             ([expo(3, 200_000, 100.0)], 32, [2_176], 2),
+             ([expo(31, 5_000), expo(32, 9), expo(33, 20_011)], 32,
+              [1, 7, 40], WINDOW))
+    rounds = {}
+    for i, (contents, ways, n_splits, window) in enumerate(cases):
+        args, yw = plan_inputs(contents, ways, n_splits, dev)
+        kw, csum, last, _, n_words, n_symbols, m = args
+        st = dict(window=window, n_slots=max(n_splits) - 1 + 5)
         got = re_.plan_splits(*args, **st)
         for g, w in zip(got, re_.plan_splits_plain(*args, **st)):
             _compare("plan_splits", g, w, errs)
-        index = heuristic.EmissionIndex(kw[0].cpu().numpy(),
-                                        yw[0].cpu().numpy().view(np.uint32),
-                                        ways)
-        offsets, ks, ys_h = heuristic.plan_split_offsets(
-            index, n, n_splits, window=WINDOW)
-        found = got[0][0].cpu().numpy()
-        if not (found.sum() == len(offsets)
-                and np.array_equal(got[1][0].cpu().numpy()[found], offsets)
-                and np.array_equal(got[2][0].cpu().numpy()[found], ks)
-                and np.array_equal(
-                    got[3][0].cpu().numpy()[found].view(np.uint32), ys_h)):
-            fail(f"plan_splits differs from heuristic.plan_split_offsets "
-                 f"(seed {seed}, {n} symbols, W={ways}, {n_splits} splits)")
+        if i == 0 and int(got[0].sum()) != 97:
+            fail("the window-expansion trigger no longer stops at slot 97, "
+                 "which runs every round and finds no candidate")
+        cover = re_.plan_cover(kw, last, n_words)
+        _compare("plan_splits", cover,
+                 re_.plan_cover_plain(kw, last, n_words), errs)
+        won = won_rounds(*(t.cpu() for t in (got[1], got[0], cover, csum,
+                                             n_words, n_symbols, m)),
+                         window=window)
+        for r in won[won >= 0].tolist():
+            rounds[r] = rounds.get(r, 0) + 1
+        for b, (NW, N, M) in enumerate(zip(n_words.tolist(),
+                                           n_symbols.tolist(), m.tolist())):
+            index = heuristic.EmissionIndex(
+                kw[b, :NW].cpu().numpy(),
+                yw[b, :NW].cpu().numpy().view(np.uint32), ways)
+            offsets, ks, ys_h = heuristic.plan_split_offsets(
+                index, N, M, window=window)
+            found = got[0][b].cpu().numpy()
+            if not (found.sum() == len(offsets)
+                    and np.array_equal(got[1][b].cpu().numpy()[found],
+                                       offsets)
+                    and np.array_equal(got[2][b].cpu().numpy()[found], ks)
+                    and np.array_equal(
+                        got[3][b].cpu().numpy()[found].view(np.uint32),
+                        ys_h)):
+                fail(f"plan_splits differs from heuristic.plan_split_offsets "
+                     f"(content {b} of {len(contents)}, W={ways}, "
+                     f"{M} splits, window {window})")
     torch.cuda.synchronize()
+    if not any(r > 0 for r in rounds):
+        fail("no slot of the planner cases was won after its first round")
     log(f"[kernels] plan_splits: {len(cases)} cases (a window-expansion "
         "trigger: seed 2, lambda 2, 4000 symbols, 100 splits; W 8..128; up "
-        "to 2176 splits) equal the plain version and "
-        f"heuristic.plan_split_offsets; max |err| {errs['plan_splits']}")
+        "to 2176 splits; window 2; a ragged batch of 3 with one split, no "
+        "word and slots past a content's M - 1) equal the plain version and "
+        "heuristic.plan_split_offsets, and the cover kernel plan_cover_plain "
+        f"on every word; slots won by round {dict(sorted(rounds.items()))}; "
+        f"max |err| {errs['plan_splits']}")
+
+
+def _hold_session_walk(sess, batch, stream, n_symbols, want, errs) -> str:
+    """The card session's executor call for one request held against the
+    plain walk of its layout (``torch_checks.session_walk``) and against
+    the symbols it must decode; returns the layout."""
+    from torch_checks import session_walk
+    layout, pairs = session_walk(sess, batch, stream, n_symbols)
+    for got, ref in pairs:
+        _compare("walk_" + layout, got, ref, errs)
+    if not np.array_equal(pairs[0][0].cpu().numpy(), want):
+        fail(f"walk_{layout} through the session != the symbols")
+    return layout
+
+
+def phase_walk_coverage(dev, errs) -> None:
+    """Both walks through a card session at n_bits 8 and 14, on a
+    4096-symbol alphabet, through ``decode_conventional`` and on the
+    golden wire vectors, each against its plain version."""
+    from repro_torch.core import container, conventional, recoil
+    from repro_torch.core.engine import DecoderSession, with_symbol_layout
+    from repro_torch.core.rans import RansParams, StaticModel
+    from repro_torch.core.vectorized import WalkBatch, encode_interleaved_fast
+    from repro_torch.kernels.rans_decode import rans_decode as rd
+    from repro_torch.kernels.rans_decode.ops import packed_lut_ok
+    launches = rd.walk_decode_pointer.launches + rd.walk_decode_symbol.launches
+    cases = 0
+
+    def both_layouts(syms, model, n_splits):
+        nonlocal cases
+        enc = encode_interleaved_fast(syms, model)
+        batch = WalkBatch.from_splits(recoil.build_split_states(
+            recoil.plan_splits(enc, n_splits), enc.final_states),
+            model.params.ways)
+        for packed in sorted({False, packed_lut_ok(model)}):
+            sess = DecoderSession(model, device=dev, packed_lut=packed)
+            ds = sess.upload_stream(enc.stream)
+            layouts = [_hold_session_walk(sess, batch, ds, len(syms), syms,
+                                          errs)]
+            ds = with_symbol_layout(ds, enc.k_of_word, len(syms))
+            layouts.append(_hold_session_walk(sess, batch, ds, len(syms),
+                                              syms, errs))
+            if layouts != ["pointer", "symbol"]:
+                fail(f"walk coverage ran on {layouts}")
+            cases += 1
+
+    for n_bits in (8, 14):
+        for ways in (8, 32, 128):
+            rng = np.random.default_rng(ways * 10 + n_bits)
+            syms = np.minimum(rng.exponential(40.0, size=40_000).astype(
+                np.int64), 255)
+            both_layouts(syms, StaticModel.from_symbols(
+                np.concatenate([syms, np.arange(256)]), 256,
+                RansParams(n_bits=n_bits, ways=ways)), 37)
+    rng = np.random.default_rng(5)
+    wide = rng.integers(0, 4096, size=40_000)
+    m4096 = StaticModel.from_symbols(np.concatenate([wide, np.arange(4096)]),
+                                     4096, RansParams(n_bits=14, ways=32))
+    if packed_lut_ok(m4096):
+        fail("a 4096-symbol model took the packed slot table")
+    both_layouts(wide, m4096, 24)
+    # The conventional adapter (a pointer walk: no emission log).
+    syms, model, _, _ = _content(17, 60_000, 32, 11, 1)
+    conv = conventional.encode_conventional(syms, model, 9)
+    sess = DecoderSession(model, device=dev)
+    states, words, out_bases = conventional.to_split_states(conv)
+    _hold_session_walk(sess, WalkBatch.from_splits(states, 32, out_bases),
+                       words, conv.n_symbols, syms, errs)
+    if not np.array_equal(sess.decode_conventional(conv).cpu().numpy(),
+                          syms):
+        fail("decode_conventional on the card != the symbols")
+    # The golden wire vectors, both layouts.
+    golden = os.path.join(TESTS, "golden")
+    names = sorted(f[:-4] for f in os.listdir(golden) if f.endswith(".bin"))
+    if len(names) < 4:
+        fail(f"golden vectors missing from {golden}")
+    for name in names:
+        with open(os.path.join(golden, f"{name}.bin"), "rb") as f:
+            buf = f.read()
+        npz = np.load(os.path.join(golden, f"{name}.npz"))
+        parsed = container.parse(buf, RansParams(n_bits=int(npz["n_bits"]),
+                                                 ways=int(npz["ways"])))
+        syms = npz["symbols"]
+        batch = WalkBatch.from_splits(
+            recoil.build_split_states(parsed.plan, parsed.final_states),
+            parsed.plan.ways)
+        sess = DecoderSession(parsed.model, device=dev)
+        ds = sess.upload_stream(parsed.stream)
+        for layout in ("pointer", "symbol"):
+            if layout == "symbol":
+                ds = with_symbol_layout(ds, npz["k_of_word"], len(syms))
+            if _hold_session_walk(sess, batch, ds, len(syms), syms,
+                                  errs) != layout:
+                fail(f"golden {name} ran on the wrong layout")
+            out = sess.decode(parsed.plan, ds, parsed.final_states)
+            if not np.array_equal(out.cpu().numpy(), syms):
+                fail(f"golden {name} ({layout}) != its frozen symbols")
+    torch.cuda.synchronize()
+    ran = rd.walk_decode_pointer.launches + rd.walk_decode_symbol.launches \
+        - launches
+    # Each case holds both layouts; the conventional adapter one call and
+    # one decode; each golden vector two of each.
+    if torch.device(dev).type == "cuda" and ran != 2 * cases + 2 + 4 * len(
+            names):
+        fail(f"walk coverage made {ran} kernel launches")
+    log(f"[kernels] walk coverage: {cases} model/slot-table cases (n_bits 8 "
+        "and 14 at W 8, 32, 128; a 4096-symbol alphabet at n 14, three "
+        "tables) on both layouts, decode_conventional (pointer), and "
+        f"{len(names)} golden vectors ({', '.join(names)}) on both layouts: "
+        f"{ran} kernel launches equal their plain walks and the symbols; "
+        f"max |err| {{'walk_pointer': {errs['walk_pointer']}, "
+        f"'walk_symbol': {errs['walk_symbol']}}}")
 
 
 def _windows_tile(plan) -> bool:
@@ -1147,20 +1301,69 @@ def phase_ingest_times(svc, assets, launches, errs, smi, sass):
                  "bound_by": "bytes" if bytes_ms >= chain_ms
                  else "operations", "library_ms": None,
                  "bound_bytes": nbytes})
+    # The design's own model: the cover pass's bytes (last, and k_of_word
+    # and c of each word, once each) at the HBM rate, and two dependent
+    # memory round trips a slot (the center, then its window).
+    cover_bytes = B * G * W * 4 + nw * 8
+    model_ms = (cover_bytes / HBM_BYTES_PER_S * 1e3
+                + S * 2 * PLAN_ROUND_TRIP_CYCLES / clock * 1e3)
     log(f"[times] plan_splits on expo ({S} split points of {nw} words): "
-        f"{ms:.4f} ms ({ms / S * 1e3:.2f} us a slot); bound "
+        f"{ms:.4f} ms ({ms / S * 1e3:.3f} us a slot); bound "
         f"{rows[1]['bound_ms']:.4f} ms ({rows[1]['bound_by']}: chain_ms, a "
         f"model: {S} slots x ({PLAN_SLOT_OPS} + log2 {W} + ceil log2 "
         f"{2 * WINDOW + 1} = {PLAN_SLOT_OPS + levels}) dependent operations "
         f"x {CYCLES_PER_DEPENDENT_OP} cycles at {clock / 1e6:.0f} MHz = "
-        f"{chain_ms:.4f} ms; bytes_ms {nbytes} B = {bytes_ms:.6f} ms); "
-        f"plain version {plain_ms:.1f} ms; card: {smi}")
+        f"{chain_ms:.4f} ms; bytes_ms {nbytes} B = {bytes_ms:.6f} ms); the "
+        f"design's model {model_ms:.4f} ms (cover pass {cover_bytes} B at "
+        f"3.35 TB/s + {S} slots x 2 round trips x {PLAN_ROUND_TRIP_CYCLES} "
+        f"cycles); plain version {plain_ms:.1f} ms; card: {smi}")
+    _profile_planner(pargs, st, got, S, smi)
     return rows
+
+
+def _profile_planner(pargs, st, plan, S, smi) -> None:
+    """How one planner call's device time splits between its three kernels
+    (``torch.profiler`` over INGEST_REPS calls), and the round in which
+    each of the expo plan's slots was won."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch_checks import won_rounds
+
+    from repro_torch.kernels.rans_encode import rans_encode as re_
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(INGEST_REPS):
+            re_.plan_splits(*pargs, **st)
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        for k in ("plan_cover_kernel", "plan_chain_kernel",
+                  "plan_emit_kernel"):
+            if k in e.key and e.device_type == torch.autograd.DeviceType.CUDA:
+                parts[k] = getattr(e, "self_device_time_total", 0) / 1e3 \
+                    / INGEST_REPS
+    if len(parts) != 3 or not all(parts.values()):
+        log("[profile] the profiler saw no planner kernel time: the split "
+            "between the planner's kernels is not measured")
+    else:
+        log(f"[profile] one plan_splits call on expo under torch.profiler "
+            f"(mean of {INGEST_REPS}): " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in parts.items())
+            + f"; the chain {parts['plan_chain_kernel'] / S * 1e3:.3f} us a "
+            f"slot; card: {smi}")
+    kw, csum, last, _, n_words, n_symbols, n_splits = pargs
+    cover = re_.plan_cover(kw, last, n_words)
+    won = won_rounds(*(t.cpu() for t in (plan[1], plan[0], cover, csum,
+                                         n_words, n_symbols, n_splits)),
+                     window=st["window"])
+    counts = torch.bincount(won[won >= 0]).tolist()
+    log(f"[times] plan_splits on expo: slots won by round {counts}")
 
 
 def main() -> int:
     smi = phase_device()
     sys.path.insert(0, SRC)
+    sys.path.insert(0, TESTS)
     from repro_torch.kernels.rans_decode import rans_decode as rd
     from repro_torch.kernels.rans_encode import rans_encode as re_
     dev = torch.device("cuda", 0)
@@ -1168,6 +1371,7 @@ def main() -> int:
     sass = phase_build([rd.LIBRARY, re_.LIBRARY])
     errs: dict = {}
     phase_kernels(dev, errs)
+    phase_walk_coverage(dev, errs)
     phase_encode_kernels(dev, errs)
     phase_plan_kernels(dev, errs)
     svc, assets, enc, launches = phase_main(dev, rd, re_)

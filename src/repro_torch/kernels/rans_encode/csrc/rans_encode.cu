@@ -5,7 +5,8 @@
 // sequential device loop each; there is no Pallas kernel for them.  These
 // kernels replace
 //   encode_scan_kernel <- src/repro/core/encode/ops.py  encode_scan
-//   plan_splits_kernel <- src/repro/core/encode/ops.py  plan_split_scan
+//   plan_cover_kernel, plan_chain_kernel, plan_emit_kernel
+//                      <- src/repro/core/encode/ops.py  plan_split_scan
 // and compute exactly what those functions compute (the emission layout and
 // compaction between them stay ordinary torch code).
 //
@@ -68,9 +69,10 @@
 // slot) are far below that at 3.35 TB/s.  The design leaves the chain warp
 // little else to issue.
 //
-// plan_splits_kernel.  One block per content; the block runs the greedy
-// split slots in order (each slot depends on the c_prev and min_q of the one
-// before).  For slot m:
+// The planner: three kernels, launched one after another on the caller's
+// stream by rans_plan_splits, of which only the middle one is sequential.
+// The greedy split slots of a content run in order (each slot depends on
+// the c_prev and min_q of the one before).  For slot m:
 //   T = ceil((N - c_prev) / (M - m)), target = c_prev + T (stop if >= N),
 //   center = #emissions at symbols < target = csum[target - 1],
 //   round 0 takes the candidates q in [max(min_q, center - w),
@@ -78,22 +80,49 @@
 //   the window by 2w a side, at most 8 rounds; the first round with a valid
 //   candidate wins, ties going to the smallest q; a slot with no valid
 //   candidate ends the planning of its content.
-// Rounds are evaluated lazily: a round evaluates only the candidates its
-// window adds (those of earlier rounds were all invalid).  The block's
-// threads take one candidate each and evaluate the backward scan "the last
-// emission of way j at offset <= q" in symbol space: it is way j's last
-// emitted symbol <= k_of_word[q], i.e. group last[t][j] with
-// t = floor((k_of_word[q] - j) / W), where last[g][j] is the last group
-// <= g in which way j emitted (-1 before its first).  A candidate is valid
-// when every way has such an emission and c = min_j k_j > c_prev; it scores
-// h = |a - c_prev + 1 - T| + |c - c_prev - T| (a = max_j k_j).  A block
-// minimum over the key (h << 32 | q) picks the winner, and the block writes
-// its k[W] and y[W].
+// A candidate's backward scan ("the last emission of way j at offset <= q")
+// runs in symbol space: way j's last emitted symbol <= k_of_word[q] is
+// k_j = last[t_j][j] W + j with t_j = floor((k_of_word[q] - j) / W), where
+// last[g][j] is the last group <= g in which way j emitted (-1 before its
+// first).  The candidate is valid when every way has such an emission and
+// c = min_j k_j > c_prev, and scores h = |a - c_prev + 1 - T| +
+// |c - c_prev - T| with a = max_j k_j.  Neither c nor a depends on the slot:
+//   a(q) = k_of_word[q], since way (k_of_word[q] mod W) emitted word q;
+//   c(q) < 0 exactly when some way has no emission at or below q (its k_j
+//   is then negative), so "covered and c > c_prev" is c(q) > c_prev;
+//   c(q) never decreases in q.
+// So the W-way scan leaves the slot chain:
+//   plan_cover_kernel (a), parallel over every word of every content:
+//       c(q) = min over p in [kq - W + 1, kq] of last_flat[p] W + (p mod W)
+//       (p itself for p < 0), kq = k_of_word[q]: the W entries t_j W + j
+//       are the W consecutive flat symbols ending at kq.  One thread a
+//       word; a warp's 32 windows overlap (about 2 symbols a word), so its
+//       loads hit a few lines through L1.  Words past n_words get -1.
+//   plan_chain_kernel (b), one warp per content: for each round's new
+//       candidates the lanes read k_of_word[q] and c(q) over the contiguous
+//       window, kCandidates a lane issued together, score them, and two
+//       warp min-reductions (h, then q among the lanes holding that h) and
+//       a shuffle of the winner's c pick the slot.  It writes found and q;
+//       c_prev and min_q stay in registers; no block barrier.  So that a
+//       slot's two dependent reads (the center, then its window) come from
+//       shared memory, the lanes copy (cp.async) what the next slot will
+//       most likely read into the other half of a double buffer while this
+//       slot runs: csum around target + T - 1, and k_of_word and c around
+//       the center extrapolated from this slot's and the last.  A read the
+//       stage does not hold goes to global memory, so the guess decides
+//       where a value is read, never which.  T's division uses a double
+//       reciprocal computed a slot ahead.
+//   plan_emit_kernel (c), one warp per found slot: k[slot][j] = g2 W + j and
+//       y[slot][j] = ys[g2][j] with g2 = last[t_j][j] for the winner's q.
 //
-// What bounds it: the slot chain.  Every slot waits for the previous slot's
-// winner, and inside a slot the center lookup, the candidate's k_of_word
-// read, its last[] reads and the block reduction are dependent.  The
-// metadata written and the tables read are a few megabytes.
+// What bounds it on the H100: the slot chain of (b), one warp issuing in
+// order.  A slot is the division for T, the center read, its window's
+// reads, the scoring of about 2w + 1 candidates (kCandidates a lane), two
+// warp reductions and a shuffle, and the next stage's copies, each step
+// dependent on the one before; the stage turns the two reads from global
+// memory round trips into shared-memory reads.  The cover pass moves about
+// last + k_of_word + c (on a 10 MB asset at n 11: 40 MB + 2 x 19 MB), tens
+// of microseconds at 3.35 TB/s; the emit pass touches 2W entries a slot.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,9 +137,18 @@ constexpr int kStage = kChunk * kLanes;
 constexpr int kAhead = 2;              // records the chain loads ahead
 constexpr int kEncodeThreads = 3 * 32;  // producer, chain and writer warps
 constexpr int kSmemAlphabet = 4096;    // static tables staged in smem
-constexpr int kPlanBlock = 256;
+constexpr int kCoverBlock = 256;       // words of one cover block
+constexpr int kEmitBlock = 128;        // four slots of one emit block
+// Candidates a chain lane loads at once: 7 x 32 covers a default round
+// (2 x 96 + 1 candidates) in one batch.
+constexpr int kCandidates = 7;
+// Entries the chain's look-ahead stage holds of the csum row (around the
+// next target) and of the k_of_word and cover rows (around the next
+// center), each a multiple of 128.
+constexpr int kLookCs = 256;
+constexpr int kLookW = 512;
 constexpr int kRounds = 8;             // the oracle's retry budget
-constexpr unsigned long long kNone = ~0ull;
+constexpr unsigned kNoScore = ~0u;     // above any h (h <= 2^32 - 2)
 
 // Shared memory of one encode block: the staged table (or none), the raw
 // ring the producer copies into (symbols, contexts when adaptive, flags)
@@ -411,124 +449,245 @@ __global__ void __launch_bounds__(kEncodeThreads) encode_scan_kernel(
   if (here && bad) zero_freq[b] = 1;   // every writer stores the same value
 }
 
-// Block-wide minimum of a 64-bit key; every thread returns it.
-__device__ unsigned long long block_min(unsigned long long v,
-                                        unsigned long long* s_warp,
-                                        unsigned long long* s_out) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const unsigned long long w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = w < v ? w : v;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) s_warp[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (blockDim.x >> 5) ? s_warp[lane] : kNone;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const unsigned long long w = __shfl_xor_sync(0xffffffffu, v, o);
-      v = w < v ? w : v;
+// (a) c(q) for every word q < cap of content b (rows b = blockIdx.y,
+// blockIdx.y + gridDim.y, ...); -1 past n_words[b].
+__global__ void __launch_bounds__(kCoverBlock) plan_cover_kernel(
+    const int32_t* __restrict__ k_of_word, int cap,
+    const int32_t* __restrict__ last, const int32_t* __restrict__ n_words,
+    int n_contents, int G, int W, int32_t* __restrict__ cover) {
+  const int q = blockIdx.x * kCoverBlock + threadIdx.x;
+  if (q >= cap) return;
+  for (int b = blockIdx.y; b < n_contents; b += gridDim.y) {
+    const size_t at = static_cast<size_t>(b) * cap + q;
+    int c = -1;
+    if (q < n_words[b]) {
+      const int kq = k_of_word[at];
+      const int32_t* lst = last + static_cast<size_t>(b) * G * W;
+      // The window's first symbol p = kq - W + 1 is way (kq + 1) mod W.
+      int p = kq - W + 1, j = (kq + 1) % W;
+      c = 0x7fffffff;
+#pragma unroll 8
+      for (int i = 0; i < W; ++i, ++p) {
+        const int k = p >= 0 ? __ldg(lst + p) * W + j : p;
+        c = min(c, k);
+        j = j + 1 == W ? 0 : j + 1;
+      }
     }
-    if (lane == 0) *s_out = v;
+    cover[at] = c;
   }
-  __syncthreads();
-  return *s_out;
 }
 
-__global__ void __launch_bounds__(kPlanBlock) plan_splits_kernel(
-    const int32_t* __restrict__ k_of_word, int cap,
-    const int32_t* __restrict__ csum, const int32_t* __restrict__ last,
-    const uint32_t* __restrict__ ys, const int32_t* __restrict__ n_words,
-    const int32_t* __restrict__ n_symbols,
+// Copies the N entries at ``src`` (16-byte aligned) into ``dst``, 16 bytes
+// a lane at a time; they land by the warp's next cp_async_wait.
+template <int N>
+__device__ __forceinline__ void stage_copy(int32_t* dst, const int32_t* src,
+                                           int lane) {
+#pragma unroll
+  for (int k = 0; k < N / (4 * 32); ++k)
+    cp_async16(dst + 4 * (lane + 32 * k), src + 4 * (lane + 32 * k));
+}
+
+// The first entry of an N-entry look-ahead stage centred on entry ``mid``
+// of a row of ``len`` >= N entries at ``row``: clamped into the row, then
+// moved down to a 16-byte boundary (by at most 3 entries, which lie in the
+// row before: a first row starts at the tensor's aligned base).
+template <int N>
+__device__ __forceinline__ int stage_start(unsigned mid, int len,
+                                           const int32_t* row) {
+  const unsigned s = min(mid > N / 2 ? mid - N / 2 : 0u,
+                         static_cast<unsigned>(len - N));
+  return static_cast<int>(s) -
+         static_cast<int>((reinterpret_cast<uintptr_t>(row + s) & 15u) >> 2);
+}
+
+// A lane's best candidate so far: the least (h, q), and its c.
+struct Best {
+  unsigned h;
+  int q, c;
+};
+
+// Scores the candidates q in [qa, qb] that fall to this lane (q = qa +
+// 32 k + lane), kCandidates loaded at a time from ``kw`` and ``cv`` at
+// q - at (shared memory when STAGE, through the read-only cache
+// otherwise), into ``best``.  A candidate is valid when c > c_prev and
+// scores h = |k_of_word - c_prev + 1 - T| + |c - c_prev - T|; each term is
+// below 2^31, so their sum fits 32 unsigned bits.  A lane meets its
+// candidates in ascending q, so a tie keeps the first.
+template <bool STAGE>
+__device__ __forceinline__ void score_range(const int32_t* kw,
+                                            const int32_t* cv, int at, int qa,
+                                            int qb, int c_prev, int T,
+                                            Best& best) {
+  const int lane = threadIdx.x & 31;
+  for (int base = qa; base <= qb; base += 32 * kCandidates) {
+    int kq[kCandidates], c[kCandidates];
+#pragma unroll
+    for (int u = 0; u < kCandidates; ++u) {
+      const int q = base + 32 * u + lane;
+      kq[u] = 0;
+      c[u] = -1;
+      if (q <= qb) {
+        kq[u] = STAGE ? kw[q - at] : __ldg(kw + q);
+        c[u] = STAGE ? cv[q - at] : __ldg(cv + q);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kCandidates; ++u) {
+      const unsigned h = static_cast<unsigned>(abs(kq[u] - c_prev + 1 - T)) +
+                         static_cast<unsigned>(abs(c[u] - c_prev - T));
+      if (c[u] > c_prev && h < best.h) best = {h, base + 32 * u + lane, c[u]};
+    }
+  }
+}
+
+// (b) The slot chain of content blockIdx.x, one warp (see the header):
+// writes found[slot] and q[slot] for the slots it fills.  Rows shorter than
+// a stage are read from global memory alone.
+__global__ void __launch_bounds__(32) plan_chain_kernel(
+    const int32_t* __restrict__ k_of_word, const int32_t* __restrict__ cover,
+    int cap, const int32_t* __restrict__ csum,
+    const int32_t* __restrict__ n_words, const int32_t* __restrict__ n_symbols,
     const int32_t* __restrict__ n_splits, int G, int W, int n_slots,
-    int window, uint8_t* __restrict__ found, int32_t* __restrict__ q_out,
-    int32_t* __restrict__ k_out, uint32_t* __restrict__ y_out) {
-  __shared__ unsigned long long s_warp[kPlanBlock / 32];
-  __shared__ unsigned long long s_best;
-  __shared__ int s_c;
-  const int b = blockIdx.x;
+    int window, uint8_t* __restrict__ found, int32_t* __restrict__ q_out) {
+  __shared__ __align__(16) int32_t s_cs[2][kLookCs];
+  __shared__ __align__(16) int32_t s_kw[2][kLookW];
+  __shared__ __align__(16) int32_t s_cv[2][kLookW];
+  const int b = blockIdx.x, lane = threadIdx.x;
   const int NW = n_words[b], N = n_symbols[b], M = n_splits[b];
   if (M <= 1 || NW == 0 || N <= 0) return;
-  const size_t grid = static_cast<size_t>(G) * W;
+  const int n_grid = G * W;
   const int32_t* kw = k_of_word + static_cast<size_t>(b) * cap;
-  const int32_t* cs = csum + b * grid;
-  const int32_t* lst = last + b * grid;
-  const uint32_t* yy = ys + b * grid;
+  const int32_t* cv = cover + static_cast<size_t>(b) * cap;
+  const int32_t* cs = csum + static_cast<size_t>(b) * n_grid;
+  const bool staged = cap >= kLookW && n_grid >= kLookCs;
 
-  int c_prev = 0, min_q = 0;
+  // The stage this slot reads: cur, and its first entries in the csum row
+  // (at_cs) and in the k_of_word and cover rows (at_w); have: it holds
+  // data.  The stage copied last (nx, at nx_cs and nx_w) is in flight until
+  // the next slot waits for it.
+  int cur = 0, at_cs = 0, at_w = 0, nx = 0, nx_cs = 0, nx_w = 0;
+  bool have = false, in_flight = false;
+  int c_prev = 0, min_q = 0, prev_center = 0;
+  double rcp = 1.0 / M;
   for (int m = 0; m < M - 1 && m < n_slots; ++m) {
     const int denom = M - m;
-    const int T = (N - c_prev + denom - 1) / denom;
+    // T = ceil((N - c_prev) / denom).  The reciprocal's quotient is exact,
+    // or one short when the true quotient is an integer; the test repairs
+    // that.
+    const int num = N - c_prev + denom - 1;
+    int T = __double2int_rz(static_cast<double>(num) * rcp);
+    T += static_cast<long long>(T + 1) * denom <= num;
+    rcp = 1.0 / (denom - 1);   // the next slot's, off this slot's chain
     const int target = c_prev + T;
     if (target >= N) break;
-    const int center = cs[target - 1];
+    if (in_flight) {   // nx == cur
+      cp_async_wait<0>();
+      __syncwarp();
+      in_flight = false;
+      have = true;
+      at_cs = nx_cs;
+      at_w = nx_w;
+    }
+    const unsigned ci = static_cast<unsigned>(target - 1 - at_cs);
+    const int center =
+        have && ci < kLookCs ? s_cs[cur][ci] : __ldg(cs + target - 1);
+    if (staged) {
+      // The next slot's stage, centred on target + T - 1 and on
+      // 2 center - prev_center (centers never decrease), each below 2^32.
+      // Its previous contents were all read by the slot before this one.
+      nx = cur ^ 1;
+      nx_cs = stage_start<kLookCs>(static_cast<unsigned>(target) + T - 1,
+                                   n_grid, cs);
+      nx_w = stage_start<kLookW>(
+          static_cast<unsigned>(center) + (center - prev_center), cap, kw);
+      stage_copy<kLookCs>(s_cs[nx], cs + nx_cs, lane);
+      stage_copy<kLookW>(s_kw[nx], kw + nx_w, lane);
+      stage_copy<kLookW>(s_cv[nx], cv + nx_w, lane);
+      cp_async_commit();
+      in_flight = true;
+    }
+    prev_center = center;
     int lo = max(min_q, center - window), hi = min(NW - 1, center + window);
-    if (hi < lo) break;
-    int p_lo = hi + 1, p_hi = hi;   // the previous round's window (none)
     bool got = false;
-    for (int r = 0; r < kRounds && !got; ++r) {
-      // The candidates this round adds: [lo, p_lo - 1] and [p_hi + 1, hi].
-      const int n_a = max(0, min(p_lo - 1, hi) - lo + 1);
-      const int b0 = max(p_hi + 1, lo);
-      const int n_new = n_a + max(0, hi - b0 + 1);
-      unsigned long long mine = kNone;
-      int mine_c = 0;
-      for (int i = threadIdx.x; i < n_new; i += blockDim.x) {
-        const int q = i < n_a ? lo + i : b0 + (i - n_a);
-        const int kq = kw[q];
-        const int t0 = kq / W, r0 = kq - t0 * W;
-        int c = 0x7fffffff, a = -1;
-        bool ok = true;
-        for (int j = 0; j < W && ok; ++j) {
-          const int t = j <= r0 ? t0 : t0 - 1;
-          const int g2 = t >= 0 ? lst[static_cast<size_t>(t) * W + j] : -1;
-          ok = g2 >= 0;
-          const int k = g2 * W + j;
-          c = min(c, k);
-          a = max(a, k);
-        }
-        if (ok && c > c_prev) {
-          const unsigned h = abs(a - c_prev + 1 - T) + abs(c - c_prev - T);
-          const unsigned long long key =
-              (static_cast<unsigned long long>(h) << 32) |
-              static_cast<unsigned>(q);
-          if (key < mine) {
-            mine = key;
-            mine_c = c;
+    if (hi >= lo) {
+      int p_lo = hi + 1, p_hi = hi;   // the previous round's window (none)
+      for (int r = 0; r < kRounds && !got; ++r) {
+        // The candidates this round adds, in ascending q: [lo, p_lo - 1]
+        // and [p_hi + 1, hi].  The round reads them from the stage if it
+        // holds them all: one branch for the warp, so that its loads go to
+        // one memory only.
+        const bool from_stage = have && lo >= at_w && hi < at_w + kLookW;
+        Best best = {kNoScore, 0, 0};
+        auto score = [&](int qa, int qb) {
+          if (from_stage)
+            score_range<true>(s_kw[cur], s_cv[cur], at_w, qa, qb, c_prev, T,
+                              best);
+          else
+            score_range<false>(kw, cv, 0, qa, qb, c_prev, T, best);
+        };
+        score(lo, min(p_lo - 1, hi));
+        score(max(p_hi + 1, lo), hi);
+        const unsigned h_min = __reduce_min_sync(0xffffffffu, best.h);
+        if (h_min != kNoScore) {
+          const bool mine = best.h == h_min;
+          const unsigned q_min = __reduce_min_sync(
+              0xffffffffu, mine ? static_cast<unsigned>(best.q) : ~0u);
+          const unsigned at = __ballot_sync(
+              0xffffffffu, mine && static_cast<unsigned>(best.q) == q_min);
+          c_prev = __shfl_sync(0xffffffffu, best.c, __ffs(at) - 1);
+          min_q = static_cast<int>(q_min) + 1;
+          if (lane == 0) {
+            const size_t slot = static_cast<size_t>(b) * n_slots + m;
+            found[slot] = 1;
+            q_out[slot] = static_cast<int>(q_min);
           }
+          got = true;
         }
+        p_lo = lo;
+        p_hi = hi;
+        lo = max(min_q, lo - 2 * window);
+        hi = min(NW - 1, hi + 2 * window);
       }
-      const unsigned long long best = block_min(mine, s_warp, &s_best);
-      if (best != kNone) {
-        if (mine == best) s_c = mine_c;   // q is unique to one thread
-        __syncthreads();
-        const int qb = static_cast<int>(best & 0xffffffffu);
-        const int kq = kw[qb];
-        const int t0 = kq / W, r0 = kq - t0 * W;
-        const size_t slot = static_cast<size_t>(b) * n_slots + m;
-        for (int j = threadIdx.x; j < W; j += blockDim.x) {
-          const int t = j <= r0 ? t0 : t0 - 1;
-          const int g2 = lst[static_cast<size_t>(t) * W + j];
-          k_out[slot * W + j] = g2 * W + j;
-          y_out[slot * W + j] = yy[static_cast<size_t>(g2) * W + j];
-        }
-        if (threadIdx.x == 0) {
-          found[slot] = 1;
-          q_out[slot] = qb;
-        }
-        c_prev = s_c;
-        min_q = qb + 1;
-        got = true;
-      }
-      __syncthreads();   // s_best and s_c are written again next round
-      p_lo = lo;
-      p_hi = hi;
-      lo = max(min_q, lo - 2 * window);
-      hi = min(NW - 1, hi + 2 * window);
     }
     if (!got) break;
+    cur = nx;
   }
+  // A stage still being copied lands before the block's shared memory is
+  // released.
+  cp_async_wait<0>();
+}
+
+// (c) Each found slot's k[W] and y[W], one warp a slot.
+__global__ void __launch_bounds__(kEmitBlock) plan_emit_kernel(
+    const int32_t* __restrict__ k_of_word, int cap,
+    const int32_t* __restrict__ last, const uint32_t* __restrict__ ys,
+    const uint8_t* __restrict__ found, const int32_t* __restrict__ q_in,
+    int n_rows, int G, int W, int n_slots, int32_t* __restrict__ k_out,
+    uint32_t* __restrict__ y_out) {
+  const int row = blockIdx.x * (kEmitBlock / 32) + (threadIdx.x >> 5);
+  if (row >= n_rows || !found[row]) return;
+  const int b = row / n_slots;
+  const size_t grid = static_cast<size_t>(G) * W;
+  const int32_t* lst = last + b * grid;
+  const uint32_t* yy = ys + b * grid;
+  const int kq = k_of_word[static_cast<size_t>(b) * cap + q_in[row]];
+  const int t0 = kq / W, r0 = kq - t0 * W;
+  for (int j = threadIdx.x & 31; j < W; j += 32) {
+    const int t = j <= r0 ? t0 : t0 - 1;
+    const int g2 = lst[static_cast<size_t>(t) * W + j];
+    k_out[static_cast<size_t>(row) * W + j] = g2 * W + j;
+    y_out[static_cast<size_t>(row) * W + j] = yy[static_cast<size_t>(g2) * W + j];
+  }
+}
+
+int launch_cover(const int32_t* k_of_word, int cap, const int32_t* last,
+                 const int32_t* n_words, int n_contents, int G, int W,
+                 int32_t* cover, cudaStream_t st) {
+  const dim3 grid((cap + kCoverBlock - 1) / kCoverBlock,
+                  n_contents < 65535 ? n_contents : 65535);
+  plan_cover_kernel<<<grid, kCoverBlock, 0, st>>>(
+      k_of_word, cap, last, n_words, n_contents, G, W, cover);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool ADAPTIVE, bool SMEM_TABLE>
@@ -601,23 +760,50 @@ extern "C" int rans_encode_scan(
                                      W, w, m, y, fs, zf, st);
 }
 
+// k_of_word [B, cap]; last [B, G, W]; n_words [B]; cover [B, cap], the
+// output: c(q) of each word, -1 past n_words.  The planner's step (a) alone.
+extern "C" int rans_plan_cover(const void* k_of_word, int cap,
+                               const void* last, const void* n_words,
+                               int n_contents, int G, int W, void* cover,
+                               void* cuda_stream) {
+  return launch_cover(static_cast<const int32_t*>(k_of_word), cap,
+                      static_cast<const int32_t*>(last),
+                      static_cast<const int32_t*>(n_words), n_contents, G, W,
+                      static_cast<int32_t*>(cover),
+                      static_cast<cudaStream_t>(cuda_stream));
+}
+
 // k_of_word [B, cap]; csum [B, G * W]; last, ys [B, G, W]; n_words,
 // n_symbols, n_splits [B]; outputs found [B, S], q [B, S], k, y [B, S, W]
-// for S = n_slots, zeroed (q: -1) by the caller.
+// for S = n_slots, zeroed (q: -1) by the caller; cover [B, cap], scratch.
+// Launches the cover, chain and emit kernels in turn and returns the first
+// launch error.
 extern "C" int rans_plan_splits(
     const void* k_of_word, int cap, const void* csum, const void* last,
     const void* ys, const void* n_words, const void* n_symbols,
     const void* n_splits, int n_contents, int G, int W, int n_slots,
-    int window, void* found, void* q, void* k, void* y, void* cuda_stream) {
-  plan_splits_kernel<<<n_contents, kPlanBlock, 0,
-                       static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const int32_t*>(k_of_word), cap,
-      static_cast<const int32_t*>(csum), static_cast<const int32_t*>(last),
-      static_cast<const uint32_t*>(ys), static_cast<const int32_t*>(n_words),
+    int window, void* found, void* q, void* k, void* y, void* cover,
+    void* cuda_stream) {
+  const auto* kw = static_cast<const int32_t*>(k_of_word);
+  const auto* lst = static_cast<const int32_t*>(last);
+  const auto* nw = static_cast<const int32_t*>(n_words);
+  auto* cv = static_cast<int32_t*>(cover);
+  auto* fd = static_cast<uint8_t*>(found);
+  auto* qq = static_cast<int32_t*>(q);
+  auto st = static_cast<cudaStream_t>(cuda_stream);
+  int err = launch_cover(kw, cap, lst, nw, n_contents, G, W, cv, st);
+  if (err != 0) return err;
+  plan_chain_kernel<<<n_contents, 32, 0, st>>>(
+      kw, cv, cap, static_cast<const int32_t*>(csum), nw,
       static_cast<const int32_t*>(n_symbols),
-      static_cast<const int32_t*>(n_splits), G, W, n_slots, window,
-      static_cast<uint8_t*>(found), static_cast<int32_t*>(q),
-      static_cast<int32_t*>(k), static_cast<uint32_t*>(y));
+      static_cast<const int32_t*>(n_splits), G, W, n_slots, window, fd, qq);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const int rows = n_contents * n_slots;
+  plan_emit_kernel<<<(rows + kEmitBlock / 32 - 1) / (kEmitBlock / 32),
+                     kEmitBlock, 0, st>>>(
+      kw, cap, lst, static_cast<const uint32_t*>(ys), fd, qq, rows, G, W,
+      n_slots, static_cast<int32_t*>(k), static_cast<uint32_t*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,7 +3,8 @@ torch versions.
 
 The kernels live in ``csrc/rans_encode.cu`` (see its header for the
 design): ``encode_scan_kernel`` computes the JAX package's
-``core/encode/ops.py::encode_scan`` and ``plan_splits_kernel`` its
+``core/encode/ops.py::encode_scan``, and three kernels launched by one
+call -- a parallel cover pass, the slot chain and the emit pass -- its
 ``plan_split_scan``.  They are built and loaded by the port's one recipe
 (:mod:`repro_torch.kernels.build`) and bound with ``ctypes``.
 
@@ -45,8 +46,10 @@ def _bind(lib: ctypes.CDLL) -> None:
                                      p, p, p]
     lib.rans_encode_scan.restype = i
     lib.rans_plan_splits.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i,
-                                     p, p, p, p, p]
+                                     p, p, p, p, p, p]
     lib.rans_plan_splits.restype = i
+    lib.rans_plan_cover.argtypes = [p, i, p, p, i, i, i, p, p]
+    lib.rans_plan_cover.restype = i
     lib.rans_encode_error_string.argtypes = [i]
     lib.rans_encode_error_string.restype = ctypes.c_char_p
 
@@ -56,8 +59,8 @@ load_library = LIBRARY.load
 
 
 def reset_counts() -> None:
-    """Zero both wrappers' ``launches`` and ``plain_calls``."""
-    for fn in (encode_scan, plan_splits):
+    """Zero the wrappers' ``launches`` and ``plain_calls``."""
+    for fn in (encode_scan, plan_splits, plan_cover):
         fn.launches = 0
         fn.plain_calls = 0
 
@@ -316,15 +319,14 @@ def _scan_candidates(kw, last, qs, W: int):
 
 def plan_splits_plain(k_of_word, csum, last, ys, n_words, n_symbols,
                       n_splits, *, window: int, n_slots: int):
-    """The plain torch planner: the oracle's loops over slots and rounds,
-    each round's whole window evaluated at once.  Same arguments and
-    results as :func:`plan_splits`."""
+    """The oracle-shaped plain planner: the oracle's loops over slots and
+    rounds, each round's whole window scanned backward over the W ways at
+    once.  Same arguments and results as :func:`plan_splits`; the
+    reference both :func:`plan_splits_by_cover` and the kernels are held
+    to."""
     B, G, W = last.shape
     dev = last.device
-    found = torch.zeros((B, n_slots), dtype=torch.bool, device=dev)
-    q_out = torch.full((B, n_slots), -1, dtype=torch.int32, device=dev)
-    k_out = torch.zeros((B, n_slots, W), dtype=torch.int32, device=dev)
-    y_out = torch.zeros((B, n_slots, W), dtype=torch.int32, device=dev)
+    found, q_out, k_out, y_out = _plan_outputs(B, n_slots, W, dev)
     lanes = torch.arange(W, device=dev)
     for b, (NW, N, M) in enumerate(zip(n_words.tolist(), n_symbols.tolist(),
                                        n_splits.tolist())):
@@ -365,6 +367,141 @@ def plan_splits_plain(k_of_word, csum, last, ys, n_words, n_symbols,
     return found, q_out, k_out, y_out
 
 
+def plan_cover_plain(k_of_word, last, n_words):
+    """The plain cover pass: ``c int32[B, cap]``, for each word q of content
+    b the least k_j of its backward scan (:func:`_scan_candidates`), -1 past
+    ``n_words[b]``.
+
+    The scan's W entries ``t_j W + j`` are the W consecutive flat symbols
+    ``p`` in ``[kq - W + 1, kq]`` (``kq = k_of_word[b, q]``), so ``c`` is
+    the minimum of ``last[p] W + p mod W`` over that window, with ``p``
+    itself for ``p < 0`` (a way with no emission yet), as the kernel
+    computes it.  ``c < 0`` exactly when some way has no emission at or
+    below word q.
+    """
+    B, G, W = last.shape
+    cap = k_of_word.shape[1]
+    dev = last.device
+    cover = torch.full((B, cap), -1, dtype=torch.int32, device=dev)
+    window = torch.arange(1 - W, 1, device=dev)
+    for b, NW in enumerate(n_words.tolist()):
+        flat = last[b].reshape(-1).long()
+        for q0 in range(0, NW, 1 << 18):        # bounds the [Q, W] temporary
+            kq = k_of_word[b, q0:min(NW, q0 + (1 << 18))].long()
+            p = kq[:, None] + window
+            k = torch.where(p >= 0, flat[p.clamp(min=0)] * W + p % W, p)
+            cover[b, q0:q0 + kq.numel()] = k.min(1).values.int()
+    return cover
+
+
+def plan_cover(k_of_word, last, n_words):
+    """The cover pass alone (the planner's first kernel, which
+    :func:`plan_splits` launches itself), ``c int32[B, cap]`` as
+    :func:`plan_cover_plain` gives it, so that a check can hold the kernel
+    to it on every word; ``k_of_word``, ``last`` and ``n_words`` as in
+    :func:`plan_splits`."""
+    if last.device.type == "cpu":
+        plan_cover.plain_calls += 1
+        return plan_cover_plain(k_of_word, last, n_words)
+    B, G, W, cap = _check_plan_inputs(k_of_word, last, n_words)
+    cover = torch.empty((B, cap), dtype=torch.int32, device=last.device)
+    if B:
+        lib = load_library()
+        err = lib.rans_plan_cover(
+            k_of_word.data_ptr(), cap, last.data_ptr(), n_words.data_ptr(),
+            B, G, W, cover.data_ptr(),
+            torch.cuda.current_stream(last.device).cuda_stream)
+        _raise_on(lib, err, "rans_plan_cover")
+        plan_cover.launches += 1
+    return cover
+
+
+def _plan_outputs(B: int, n_slots: int, W: int, dev):
+    return (torch.zeros((B, n_slots), dtype=torch.bool, device=dev),
+            torch.full((B, n_slots), -1, dtype=torch.int32, device=dev),
+            torch.zeros((B, n_slots, W), dtype=torch.int32, device=dev),
+            torch.zeros((B, n_slots, W), dtype=torch.int32, device=dev))
+
+
+def plan_splits_by_cover(k_of_word, csum, last, ys, n_words, n_symbols,
+                         n_splits, *, window: int, n_slots: int):
+    """The plain version of the card's decomposition: the cover pass
+    (:func:`plan_cover_plain`), the slot chain over ``k_of_word`` and ``c``
+    alone (each round evaluates only the candidates it adds; a candidate
+    is valid when ``c > c_prev`` and scores ``h`` with ``a = k_of_word``),
+    then the emit step.  Same arguments and results as
+    :func:`plan_splits`."""
+    B, G, W = last.shape
+    dev = last.device
+    found, q_out, k_out, y_out = _plan_outputs(B, n_slots, W, dev)
+    cover = plan_cover_plain(k_of_word, last, n_words)
+    lanes = torch.arange(W, device=dev)
+    for b, (NW, N, M) in enumerate(zip(n_words.tolist(), n_symbols.tolist(),
+                                       n_splits.tolist())):
+        if M <= 1 or NW == 0 or N <= 0:
+            continue
+        kw, cv = k_of_word[b].long(), cover[b].long()
+        c_prev = min_q = 0
+        for m in range(min(M - 1, n_slots)):
+            T = -(-(N - c_prev) // (M - m))
+            target = c_prev + T
+            if target >= N:
+                break
+            center = int(csum[b, target - 1])
+            lo, hi = max(min_q, center - window), min(NW - 1, center + window)
+            if hi < lo:
+                break
+            p_lo, p_hi = hi + 1, hi
+            got = False
+            for _ in range(ROUNDS):
+                qs = torch.cat([
+                    torch.arange(lo, min(p_lo - 1, hi) + 1, device=dev),
+                    torch.arange(max(p_hi + 1, lo), hi + 1, device=dev)])
+                c = cv[qs]
+                valid = c > c_prev
+                if bool(valid.any()):
+                    h = (kw[qs] - c_prev + 1 - T).abs() + \
+                        (c - c_prev - T).abs()
+                    best = int(torch.where(valid, h, 2 ** 62).argmin())
+                    found[b, m] = True
+                    q_out[b, m] = int(qs[best])
+                    c_prev, min_q = int(c[best]), int(qs[best]) + 1
+                    got = True
+                    break
+                p_lo, p_hi = lo, hi
+                lo = max(min_q, lo - 2 * window)
+                hi = min(NW - 1, hi + 2 * window)
+            if not got:
+                break
+        # The emit step: each found slot's k[W] and y[W].
+        rows = found[b].nonzero().flatten()
+        kq = kw[q_out[b, rows].long()]
+        t = torch.where(lanes <= (kq % W)[:, None], kq[:, None] // W,
+                        kq[:, None] // W - 1)
+        g2 = last[b][t, lanes].long()
+        k_out[b, rows] = (g2 * W + lanes).int()
+        y_out[b, rows] = ys[b][g2, lanes]
+    return found, q_out, k_out, y_out
+
+
+def _check_plan_inputs(k_of_word, last, n_words) -> tuple:
+    """``(B, G, W, cap)`` of the planner's inputs on the card; raises on a
+    shape, dtype, device or layout the kernels do not take."""
+    dev = last.device
+    if last.dim() != 3 or k_of_word.dim() != 2:
+        raise ValueError("last must be [B, G, W] and k_of_word [B, cap]")
+    B, G, W = last.shape
+    cap = k_of_word.shape[1]
+    if B * G * W >= 2 ** 31 or B * cap >= 2 ** 31 or cap == 0:
+        raise ValueError("plan_splits: sizes out of range")
+    _check("k_of_word", k_of_word, torch.int32, (B, cap), dev)
+    _check("last", last, torch.int32, (B, G, W), dev)
+    _check("n_words", n_words, torch.int32, (B,), dev)
+    if k_of_word.data_ptr() % 16:
+        raise ValueError("k_of_word must be 16-byte aligned")
+    return B, G, W, cap
+
+
 def plan_splits(k_of_word, csum, last, ys, n_words, n_symbols, n_splits, *,
                 window: int, n_slots: int):
     """Greedy Def-4.1 split selection for B contents, bit-exact against
@@ -382,39 +519,37 @@ def plan_splits(k_of_word, csum, last, ys, n_words, n_symbols, n_splits, *,
     y int32[B, S, W])`` for ``S = n_slots``; the slots a content fills are
     a prefix (planning stops at the first slot with no candidate), the
     others hold ``q = -1`` and zeros.
+
+    On the card one call launches the cover, chain and emit kernels (one
+    ``launches``), with an int32[B, cap] scratch for the cover, and takes
+    ``k_of_word`` and ``csum`` 16-byte aligned; on the CPU it runs
+    :func:`plan_splits_by_cover`.
     """
     if last.device.type == "cpu":
         plan_splits.plain_calls += 1
-        return plan_splits_plain(k_of_word, csum, last, ys, n_words,
-                                 n_symbols, n_splits, window=window,
-                                 n_slots=n_slots)
+        return plan_splits_by_cover(k_of_word, csum, last, ys, n_words,
+                                    n_symbols, n_splits, window=window,
+                                    n_slots=n_slots)
     dev = last.device
-    if last.dim() != 3 or k_of_word.dim() != 2:
-        raise ValueError("last must be [B, G, W] and k_of_word [B, cap]")
-    B, G, W = last.shape
-    cap = k_of_word.shape[1]
-    if B * G * W >= 2 ** 31 or B * cap >= 2 ** 31 or window < 1 or \
-            n_slots < 0 or cap == 0:
+    B, G, W, cap = _check_plan_inputs(k_of_word, last, n_words)
+    if window < 1 or n_slots < 0 or B * n_slots * max(W, 32) >= 2 ** 31:
         raise ValueError("plan_splits: sizes out of range")
-    _check("k_of_word", k_of_word, torch.int32, (B, cap), dev)
     _check("csum", csum, torch.int32, (B, G * W), dev)
-    _check("last", last, torch.int32, (B, G, W), dev)
     _check("ys", ys, torch.int32, (B, G, W), dev)
-    for name, t in (("n_words", n_words), ("n_symbols", n_symbols),
-                    ("n_splits", n_splits)):
+    if csum.data_ptr() % 16:
+        raise ValueError("csum must be 16-byte aligned")
+    for name, t in (("n_symbols", n_symbols), ("n_splits", n_splits)):
         _check(name, t, torch.int32, (B,), dev)
-    found = torch.zeros((B, n_slots), dtype=torch.bool, device=dev)
-    q_out = torch.full((B, n_slots), -1, dtype=torch.int32, device=dev)
-    k_out = torch.zeros((B, n_slots, W), dtype=torch.int32, device=dev)
-    y_out = torch.zeros((B, n_slots, W), dtype=torch.int32, device=dev)
+    found, q_out, k_out, y_out = _plan_outputs(B, n_slots, W, dev)
     if B and n_slots:
+        cover = torch.empty((B, cap), dtype=torch.int32, device=dev)
         lib = load_library()
         err = lib.rans_plan_splits(
             k_of_word.data_ptr(), cap, csum.data_ptr(), last.data_ptr(),
             ys.data_ptr(), n_words.data_ptr(), n_symbols.data_ptr(),
             n_splits.data_ptr(), B, G, W, n_slots, window, found.data_ptr(),
             q_out.data_ptr(), k_out.data_ptr(), y_out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            cover.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, err, "rans_plan_splits")
         plan_splits.launches += 1
     return found, q_out, k_out, y_out

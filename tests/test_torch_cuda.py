@@ -14,6 +14,9 @@ port are imported inside the fixture and tests, so the test worker itself
 never loads torch.
 """
 
+import glob
+import os
+
 import numpy as np
 import pytest
 from test_torch_isolation import in_child, in_child_process
@@ -254,6 +257,140 @@ def test_plans_of_one_key_decode_their_own_sizes(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# Walk coverage: other quantizations, 16-bit symbols, the conventional
+# adapter and the golden vectors, each through the card's session
+# ---------------------------------------------------------------------------
+
+def _session_walk_equals_plain(sess, batch, stream, n_symbols, want):
+    """The executor's call on the card for one request, one kernel launch,
+    held against the plain walk of its layout on the same arguments (output
+    and, pointer, final pointers) and against the symbols it must decode;
+    returns the layout."""
+    import torch
+    from torch_checks import session_walk
+
+    from repro_torch.kernels.rans_decode import rans_decode as rd
+    launches = rd.walk_decode_pointer.launches + rd.walk_decode_symbol.launches
+    layout, pairs = session_walk(sess, batch, stream, n_symbols)
+    torch.cuda.synchronize()
+    assert rd.walk_decode_pointer.launches + \
+        rd.walk_decode_symbol.launches == launches + 1
+    for got, ref in pairs:
+        assert torch.equal(got, ref)
+    np.testing.assert_array_equal(pairs[0][0].cpu().numpy(), want)
+    return layout
+
+
+def _check_walk_layouts(syms, model, n_splits, device):
+    """Both walks, under every slot-table layout the model allows, through a
+    session on the card, against their plain versions."""
+    from repro_torch.core import recoil
+    from repro_torch.core.engine import DecoderSession, with_symbol_layout
+    from repro_torch.core.vectorized import WalkBatch, encode_interleaved_fast
+    from repro_torch.kernels.rans_decode.ops import packed_lut_ok
+    enc = encode_interleaved_fast(syms, model)
+    plan = recoil.plan_splits(enc, n_splits)
+    batch = WalkBatch.from_splits(
+        recoil.build_split_states(plan, enc.final_states), model.params.ways)
+    n = len(syms)
+    for packed in sorted({False, packed_lut_ok(model)}):
+        sess = DecoderSession(model, device=device, packed_lut=packed)
+        ds = sess.upload_stream(enc.stream)
+        assert _session_walk_equals_plain(sess, batch, ds, n, syms) == \
+            "pointer"
+        ds = with_symbol_layout(ds, enc.k_of_word, n)
+        assert _session_walk_equals_plain(sess, batch, ds, n, syms) == \
+            "symbol"
+
+
+@pytest.mark.parametrize("ways", [8, 32, 128])
+@pytest.mark.parametrize("n_bits", [8, 14])
+@in_child
+def test_walk_kernels_at_n_bits_8_and_14(cuda_device, ways, n_bits):
+    from repro_torch.core.rans import RansParams, StaticModel
+    rng = np.random.default_rng(ways * 10 + n_bits)
+    syms = np.minimum(rng.exponential(40.0, size=20_000).astype(np.int64),
+                      255)
+    model = StaticModel.from_symbols(np.concatenate([syms, np.arange(256)]),
+                                     256, RansParams(n_bits=n_bits, ways=ways))
+    _check_walk_layouts(syms, model, 37, cuda_device)
+
+
+@in_child
+def test_walk_kernels_on_a_4096_symbol_alphabet(cuda_device):
+    """16-bit symbols at n = 14: the three-table slot layout only."""
+    from repro_torch.core.rans import RansParams, StaticModel
+    from repro_torch.kernels.rans_decode.ops import packed_lut_ok
+    rng = np.random.default_rng(5)
+    syms = rng.integers(0, 4096, size=20_000)
+    model = StaticModel.from_symbols(np.concatenate([syms, np.arange(4096)]),
+                                     4096, RansParams(n_bits=14, ways=32))
+    assert not packed_lut_ok(model)
+    _check_walk_layouts(syms, model, 24, cuda_device)
+
+
+@in_child
+def test_decode_conventional_on_the_card(cuda_device):
+    """``DecoderSession.decode_conventional`` on the card (pointer walk: a
+    conventional stream has no emission log): its executor call equals the
+    plain walk, and the session's decode equals the symbols and the CPU
+    session's."""
+    from repro_torch.core import conventional
+    from repro_torch.core.engine import DecoderSession
+    from repro_torch.core.vectorized import WalkBatch
+    from repro_torch.kernels.rans_decode import rans_decode as rd
+    syms, model, _, _ = _content(17, 30_000, 32, 11, 1)
+    conv = conventional.encode_conventional(syms, model, 9)
+    sess = DecoderSession(model, device=cuda_device)
+    states, words, out_bases = conventional.to_split_states(conv)
+    batch = WalkBatch.from_splits(states, 32, out_bases)
+    assert _session_walk_equals_plain(sess, batch, words, conv.n_symbols,
+                                      syms) == "pointer"
+    before = rd.walk_decode_pointer.launches
+    out = sess.decode_conventional(conv).cpu().numpy()
+    assert rd.walk_decode_pointer.launches == before + 1
+    np.testing.assert_array_equal(out, syms)
+    cpu = DecoderSession(model, device="cpu").decode_conventional(conv)
+    np.testing.assert_array_equal(out, cpu.numpy())
+
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+GOLDEN_NAMES = sorted(os.path.splitext(os.path.basename(p))[0]
+                      for p in glob.glob(os.path.join(GOLDEN, "*.bin")))
+
+
+@pytest.mark.parametrize("name", GOLDEN_NAMES)
+@in_child
+def test_golden_vectors_on_the_card(cuda_device, name):
+    """The frozen wire containers of ``tests/golden`` parsed by the port and
+    decoded on the card under both layouts (the symbol layout from the
+    frozen emission log): each executor call equals its plain walk, and
+    each decode the frozen symbols."""
+    from repro_torch.core import container, recoil
+    from repro_torch.core.engine import DecoderSession, with_symbol_layout
+    from repro_torch.core.rans import RansParams
+    from repro_torch.core.vectorized import WalkBatch
+    with open(os.path.join(GOLDEN, f"{name}.bin"), "rb") as f:
+        buf = f.read()
+    npz = np.load(os.path.join(GOLDEN, f"{name}.npz"))
+    parsed = container.parse(buf, RansParams(n_bits=int(npz["n_bits"]),
+                                             ways=int(npz["ways"])))
+    syms = npz["symbols"]
+    n = len(syms)
+    batch = WalkBatch.from_splits(
+        recoil.build_split_states(parsed.plan, parsed.final_states),
+        parsed.plan.ways)
+    sess = DecoderSession(parsed.model, device=cuda_device)
+    ds = sess.upload_stream(parsed.stream)
+    for layout in ("pointer", "symbol"):
+        if layout == "symbol":
+            ds = with_symbol_layout(ds, npz["k_of_word"], n)
+        assert _session_walk_equals_plain(sess, batch, ds, n, syms) == layout
+        out = sess.decode(parsed.plan, ds, parsed.final_states)
+        np.testing.assert_array_equal(out.cpu().numpy(), syms)
+
+
+# ---------------------------------------------------------------------------
 # The ingest kernels (kernels/rans_encode)
 # ---------------------------------------------------------------------------
 
@@ -440,48 +577,62 @@ def test_encode_wrapper_refuses_a_table_for_another_n_bits(cuda_device):
 
 @in_child
 def test_plan_kernel_equals_plain_and_heuristic(cuda_device):
-    """The planner kernel against its plain version and the port's
-    ``heuristic.plan_split_offsets`` on the same emission data, including
-    a case that needs window expansion and a 2176-thread plan."""
+    """The planner's kernels against the plain versions and the port's
+    ``heuristic.plan_split_offsets`` on the same emission data: a case that
+    needs window expansion, a 2176-thread plan, a window-2 case whose slots
+    are won in later rounds, and a ragged batch of three contents (one
+    split; no word; slots past a content's M - 1).  The cover kernel alone
+    equals ``plan_cover_plain`` on every word."""
     import torch
+    from torch_checks import plan_inputs, won_rounds
+
     from repro_torch.core import heuristic
-    from repro_torch.core.encode import ops
-    from repro_torch.core.rans import RansParams, StaticModel
-    from repro_torch.core.encode.executors import encode_scan_args
     from repro_torch.kernels.rans_encode import rans_encode as re_
-    for seed, n, ways, n_splits, lam in ((2, 4_000, 32, 100, 2.0),
-                                         (5, 30_000, 64, 2_176, 40.0),
-                                         (6, 20_011, 8, 16, 40.0)):
+
+    def expo(seed, n, lam=40.0):
         rng = np.random.default_rng(seed)
-        syms = np.minimum(rng.exponential(lam, size=n).astype(np.int64), 255)
-        model = StaticModel.from_symbols(syms, 256,
-                                         RansParams(n_bits=11, ways=ways))
-        sym, active, f, F, x0 = encode_scan_args(syms, model.f, model.F,
-                                                 ways, cuda_device)
-        words, masks, ys, _, _ = re_.encode_scan(sym, active, f, F, x0,
-                                                 n_bits=11)
-        csum, last, n_words = ops.emission_layout(masks)
-        nw = int(n_words[0])
-        stream, kw, yw = ops.compact_emissions(words, ys, masks, csum, nw)
-        args = (kw, csum, last, ys, n_words.int(),
-                torch.tensor([n], dtype=torch.int32, device=cuda_device),
-                torch.tensor([n_splits], dtype=torch.int32,
-                             device=cuda_device))
-        kw_args = dict(window=96, n_slots=n_splits - 1)
+        return np.minimum(rng.exponential(lam, size=n).astype(np.int64), 255)
+
+    cases = (([expo(2, 4_000, 2.0)], 32, [100], 96),
+             ([expo(5, 30_000)], 64, [2_176], 96),
+             ([expo(6, 20_011)], 8, [16], 96),
+             ([expo(3, 200_000, 100.0)], 32, [2_176], 2),
+             ([expo(31, 5_000), expo(32, 9), expo(33, 20_011)], 32,
+              [1, 7, 40], 96))
+    later = 0
+    for i, (contents, ways, n_splits, window) in enumerate(cases):
+        args, yw = plan_inputs(contents, ways, n_splits, cuda_device)
+        kw, csum, last, _, n_words, n_symbols, m = args
+        kw_args = dict(window=window, n_slots=max(n_splits) - 1 + 5)
+        before = re_.plan_splits.launches
         got = re_.plan_splits(*args, **kw_args)
+        assert re_.plan_splits.launches == before + 1
         want = re_.plan_splits_plain(*args, **kw_args)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-        index = heuristic.EmissionIndex(kw[0].cpu().numpy(),
-                                        yw[0].cpu().numpy().view(np.uint32),
-                                        ways)
-        offsets, ks, ys_h = heuristic.plan_split_offsets(index, n, n_splits)
-        found = got[0][0].cpu().numpy()
-        assert found.sum() == len(offsets)
-        np.testing.assert_array_equal(got[1][0].cpu().numpy()[found], offsets)
-        np.testing.assert_array_equal(got[2][0].cpu().numpy()[found], ks)
-        np.testing.assert_array_equal(
-            got[3][0].cpu().numpy()[found].view(np.uint32), ys_h)
+        if i == 0:      # the trigger: slot 97 of 99 runs every round and
+            assert int(got[0].sum()) == 97      # finds no candidate
+        cover = re_.plan_cover(kw, last, n_words)
+        assert torch.equal(cover, re_.plan_cover_plain(kw, last, n_words))
+        rounds = won_rounds(*(t.cpu() for t in (got[1], got[0], cover, csum,
+                                                n_words, n_symbols, m)),
+                            window=window)
+        later += int((rounds > 0).sum())
+        for b, (NW, N, M) in enumerate(zip(n_words.tolist(),
+                                           n_symbols.tolist(), m.tolist())):
+            index = heuristic.EmissionIndex(
+                kw[b, :NW].cpu().numpy(),
+                yw[b, :NW].cpu().numpy().view(np.uint32), ways)
+            offsets, ks, ys_h = heuristic.plan_split_offsets(
+                index, N, M, window=window)
+            found = got[0][b].cpu().numpy()
+            assert found.sum() == len(offsets)
+            np.testing.assert_array_equal(got[1][b].cpu().numpy()[found],
+                                          offsets)
+            np.testing.assert_array_equal(got[2][b].cpu().numpy()[found], ks)
+            np.testing.assert_array_equal(
+                got[3][b].cpu().numpy()[found].view(np.uint32), ys_h)
+    assert later > 0
 
 
 @in_child

@@ -617,3 +617,118 @@ def test_encode_executor_builds_its_table_once():
     got = rans_encode.encode_scan(*args, n_bits=11, table=ex.table)
     want = rans_encode.encode_scan_plain(*args, n_bits=11)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# The split planner's decomposition (kernels/rans_encode): a cover pass over
+# every word, a slot chain over k_of_word and c alone, an emit step
+# ---------------------------------------------------------------------------
+
+def _assert_cover_identities(kw, last, n_words, cover):
+    """The four facts the decomposition rests on, on every word q of every
+    content, against the oracle-shaped backward scan: c is the scan's
+    least k_j (-1 past n_words); a = max_j k_j equals k_of_word[q]; c >= 0
+    exactly when every way has emitted at or below q; c never decreases."""
+    import torch
+    from repro_torch.kernels.rans_encode.rans_encode import _scan_candidates
+    W = last.shape[2]
+    lanes = torch.arange(W)
+    for b, NW in enumerate(n_words.tolist()):
+        assert (cover[b, NW:] == -1).all()
+        if NW == 0:
+            continue
+        g2, ok = _scan_candidates(kw[b], last[b], torch.arange(NW), W)
+        k = g2 * W + lanes
+        c = cover[b, :NW].long()
+        assert torch.equal(c, k.min(1).values)
+        assert torch.equal(k.max(1).values, kw[b, :NW].long())
+        assert torch.equal(c >= 0, ok)
+        assert bool((c[1:] >= c[:-1]).all())
+        assert not bool(ok.all()), "no word without full cover: weak case"
+
+
+def _assert_plans_agree(args, yw, window, n_slots):
+    """plan_splits (the CPU path), plan_splits_by_cover and
+    plan_splits_plain are equal, and each content's found slots equal
+    heuristic.plan_split_offsets; returns the plan and its won rounds."""
+    import torch
+    from torch_checks import won_rounds
+
+    from repro_torch.core import heuristic
+    from repro_torch.kernels.rans_encode import rans_encode
+    st = dict(window=window, n_slots=n_slots)
+    want = rans_encode.plan_splits_plain(*args, **st)
+    for got in (rans_encode.plan_splits_by_cover(*args, **st),
+                rans_encode.plan_splits(*args, **st)):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    kw, csum, last, _, n_words, n_symbols, n_splits = args
+    W = last.shape[2]
+    for b, (NW, N, M) in enumerate(zip(n_words.tolist(), n_symbols.tolist(),
+                                       n_splits.tolist())):
+        index = heuristic.EmissionIndex(kw[b, :NW].numpy(),
+                                        yw[b, :NW].numpy().view(np.uint32), W)
+        offsets, ks, ys = heuristic.plan_split_offsets(index, N, M,
+                                                       window=window)
+        found = want[0][b].numpy()
+        assert found.sum() == len(offsets)
+        assert not found[len(offsets):].any()          # a prefix
+        np.testing.assert_array_equal(want[1][b].numpy()[found], offsets)
+        np.testing.assert_array_equal(want[2][b].numpy()[found], ks)
+        np.testing.assert_array_equal(
+            want[3][b].numpy()[found].view(np.uint32), ys)
+    cover = rans_encode.plan_cover(kw, last, n_words)
+    _assert_cover_identities(kw, last, n_words, cover)
+    rounds = won_rounds(want[1], want[0], cover, csum, n_words, n_symbols,
+                        n_splits, window=window)
+    assert torch.equal(rounds >= 0, want[0])
+    return want, rounds
+
+
+@pytest.mark.parametrize("window", [96, 2, 1])
+@pytest.mark.parametrize("ways", [8, 32, 64, 128])
+@in_child
+def test_plan_decomposition_equals_plain_and_heuristic(ways, window):
+    """The cover pass and the chain over (k_of_word, c) pick the oracle's
+    slot in every round budget the window leaves, at W 8 to 128 (about
+    8 W symbols a split, so that narrow windows still find covered
+    words)."""
+    from torch_checks import plan_inputs
+    n_splits = 16_000 // (8 * ways)
+    args, yw = plan_inputs([_symbols(ways + window, 16_000)], ways,
+                           [n_splits], "cpu")
+    plan, _ = _assert_plans_agree(args, yw, window, n_splits - 1)
+    assert int(plan[0].sum()) > n_splits // 2
+
+
+@in_child
+def test_plan_decomposition_wins_later_rounds():
+    """At window 2 (seed 3, lambda 100, W 32, 2176 splits) planning stops
+    after 198 slots, and five of them are won in a round after the first:
+    the path through the lazy rounds, which the window-96 cases never
+    take."""
+    from torch_checks import plan_inputs
+    rng = np.random.default_rng(3)
+    syms = np.minimum(rng.exponential(100.0, size=200_000).astype(np.int64),
+                      255)
+    args, yw = plan_inputs([syms], 32, [2_176], "cpu")
+    plan, rounds = _assert_plans_agree(args, yw, 2, 2_175)
+    assert int(plan[0].sum()) == 198
+    assert int((rounds > 0).sum()) == 5
+
+
+@in_child
+def test_plan_decomposition_ragged_batch():
+    """Three contents in one call, as ``ingest_batch`` launches them: one
+    with a single split (no slot), one too short to emit a word
+    (n_words 0), and one whose 40 splits leave slots past the first's
+    M - 1 = 0 and the batch's n_slots past its own."""
+    import torch
+    from torch_checks import plan_inputs
+    contents = [_symbols(31, 5_000), _symbols(32, 9), _symbols(33, 20_011)]
+    args, yw = plan_inputs(contents, 32, [1, 7, 40], "cpu")
+    assert args[4].tolist()[1] == 0
+    plan, _ = _assert_plans_agree(args, yw, 96, 45)
+    assert plan[0].sum(1).tolist() == [0, 0, 39]
+    assert torch.equal(plan[1][2, 39:], torch.full((6,), -1,
+                                                    dtype=torch.int32))

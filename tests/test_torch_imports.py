@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports jax or the JAX package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and not the test helpers it imports
+(``tests/torch_checks.py``) import jax or the JAX package ``repro``."""
 
 import ast
 import os
@@ -13,7 +14,7 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 SOURCES = sorted(
     [os.path.relpath(os.path.join(d, f), ROOT)
      for d, _, files in os.walk(PORT) for f in files if f.endswith(".py")]
-    + ["chip_smoke.py"])
+    + ["chip_smoke.py", os.path.join("tests", "torch_checks.py")])
 FORBIDDEN = ("jax", "repro")
 
 
@@ -30,6 +31,7 @@ def _imports(path):
 
 def test_sources_found():
     assert "chip_smoke.py" in SOURCES
+    assert os.path.join("tests", "torch_checks.py") in SOURCES
     assert len(SOURCES) > 15
 
 
