@@ -47,14 +47,29 @@ package — in five phases, each failing loudly with a non-zero exit:
                Both are held against the host encoder and ``plan_splits``
                (stream words, emission log, final states, every split point,
                permutation), then decoded at 16, 128 and 2176 threads and in
-               a fused group of 8 mixed requests.  ``extend`` (9 MB + 1 MB)
-               must equal the full ingest and the reference's extend points,
-               and ``ingest_batch`` of three contents the three single
-               ingests.  Every decode must equal the input symbols, all four
-               kernels must have launched, no plain version may have served,
-               every single-content plan must be covered (no -1 fill) and the
-               fused plan's coverage must be what an independent check of its
-               windows says;
+               a fused group of 8 mixed requests.  Streaming: at each thread
+               count, 1, 3 and 8 chunks through ``decode_chunks`` and
+               ``submit_stream`` must equal their slices of the symbols and
+               concatenate to ``decode``, the chunk specs must tile the asset
+               with ``words_end`` rising to the stream's length, every chunk
+               plan must be covered, and a second, warm round of streams must
+               resolve no launcher; zipf re-packed as an 8-chunk wire
+               container must decode each chunk from a stream on the card
+               holding only that chunk's ``words_end`` words.  The group
+               backend: ``dispatch_group`` of the 8 mixed requests must equal
+               ``submit``/``flush``, and ``prepare_group`` must count no
+               dispatch.  Faults: a ``drop_last_word`` corruption armed at
+               ``service.register`` must make ``register`` of a resident
+               stream raise, and a ``service.dispatch_stream`` fault must
+               reach the ticket's first chunk; ``metrics_text()`` must show
+               stream requests and profiler runs of both sessions.
+               ``extend`` (9 MB + 1 MB) must equal the full ingest and the
+               reference's extend points, and ``ingest_batch`` of three
+               contents the three single ingests.  Every decode must equal
+               the input symbols, all four kernels must have launched, no
+               plain version may have served, every single-content plan must
+               be covered (no -1 fill) and the fused plan's coverage must be
+               what an independent check of its windows says;
   5. times   — each walk kernel at the main path's 16-, 128- and 2176-thread
                plans: the executor's call, the one the main path makes,
                checked against the input symbols and against its plain
@@ -62,7 +77,15 @@ package — in five phases, each failing loudly with a non-zero exit:
                then its CUDA-event device time, per-step time and the bound;
                a separate line gives a model of the bytes the rings copy
                (from their geometry, not a counter); at 2176 threads, the
-               plain version's time.  Then the warm ``ingest`` latency of
+               plain version's time.  Streaming at 16 and 2176 threads in 8
+               chunks: the device time from the first chunk's launch to
+               the end of chunk 0 and of the last chunk (the phase's own
+               timing events after each launch), beside the whole-asset
+               decode's device time and ``submit_stream``'s host enqueue
+               time (medians).  At 2176 threads, the instrumentation's host
+               cost: the warm ``decode`` and ``submit_stream`` on the main
+               service (``observe=True``) and on one with ``observe=False``
+               serving the same content, interleaved (medians).  Then the warm ``ingest`` latency of
                each 10 MB asset and the ``extend`` latency of the 1 MB delta
                (host clock around the call and a synchronize, median of 5),
                and each ingest kernel's CUDA-event device time at the main
@@ -123,6 +146,11 @@ REPLACES = {
     "plan_splits": "src/repro/core/encode/ops.py:227",
 }
 INGEST_REPS = 5
+# Streaming: the chunk counts phase 4 checks, and phase 5's timed stream.
+CHUNK_COUNTS = (1, 3, 8)
+STREAM_CHUNKS = 8
+STREAM_THREADS = (16, 2176)
+OBSERVE_THREADS = 2176  # the instrumentation's host cost weighs most here
 # The ingest path's assets: the first 9 MB of one asset is ingested and then
 # extended by the last 1 MB.
 EXTEND_AT = 9 * MB
@@ -850,6 +878,7 @@ def phase_main(dev, rd, re_):
     from repro_torch.core.encode import EncoderSession
     from repro_torch.core.vectorized import (encode_interleaved_fast,
                                              words_by_symbol_host)
+    from repro_torch.runtime.faultinject import FaultInjector
     from repro_torch.runtime.serve import DecodeService
     assets, model = _assets()
     # The host reference: the port's host encoder and numpy planner.
@@ -868,7 +897,8 @@ def phase_main(dev, rd, re_):
 
     rd.reset_counts()
     re_.reset_counts()
-    svc = DecodeService(model, device=dev)
+    faults = FaultInjector()       # armed only by the fault checks below
+    svc = DecodeService(model, device=dev, faults=faults)
     svc.ingest("expo", raw["expo"], PLAN_THREADS)
     coder = EncoderSession(model, device=dev)
     zres = coder.ingest(raw["zipf"], PLAN_THREADS)
@@ -931,6 +961,9 @@ def phase_main(dev, rd, re_):
     log(f"[main] {len(singles)} single-content plans covered, fused plan "
         f"covered={fused[0].covered} ({fused[0].args[4].shape[0]} rows): "
         "no output fill on the main path")
+    _check_streams(svc, assets, want, enc, dev, rd)
+    _check_wire_prefixes(svc, want, logs["zipf"], zres.plan, model, dev)
+    _check_groups_and_faults(svc, reqs, want, faults)
 
     # extend: the first 9 MB, then the last 1 MB.
     expo = raw["expo"]
@@ -988,8 +1021,9 @@ def phase_main(dev, rd, re_):
         f"{plain}; output fills {fills}; service {stats}")
     if min(launches.values()) == 0 or plain != 0:
         fail("the main path did not run on all four kernels alone")
-    if stats["fused_dispatches"] != 1 or stats["pointer_plans"] < 4:
-        fail("the mixed group did not fuse into one pointer-layout dispatch")
+    if stats["fused_dispatches"] != 2 or stats["pointer_plans"] < 4:
+        fail("the mixed group did not fuse into one pointer-layout dispatch "
+             "through submit/flush and one through dispatch_group")
     if (stats["ingests"], stats["extends"]) != (5, 1):
         fail(f"service counted {stats['ingests']} ingests and "
              f"{stats['extends']} extends, expected 5 and 1")
@@ -1009,6 +1043,160 @@ def phase_main(dev, rd, re_):
                 f"median {med:.3f} ms of {LATENCY_REPS}, "
                 f"{len(assets[name]) / med / 1e3:.1f} MB/s")
     return svc, assets, enc, launches
+
+
+def _check_streams(svc, assets, want, enc, dev, rd) -> None:
+    """Streaming on both assets at every thread count and chunk count: each
+    chunk of ``decode_chunks`` and of ``submit_stream`` (read with
+    ``synchronize``) equals its slice of the symbols, the chunks concatenate
+    to ``decode``, the specs tile the asset with ``words_end`` rising to the
+    stream's length, every chunk plan is covered; then a warm round resolves
+    no launcher and hits the plan memo once per stream."""
+    fills = rd.walk_decode_pointer.fills + rd.walk_decode_symbol.fills
+    chunks = 0
+    for name in assets:
+        n, n_words = len(assets[name]), enc[name].n_words
+        for th in THREADS:
+            whole = svc.decode(name, th)
+            for nc in CHUNK_COUNTS:
+                parts = svc.decode_chunks(name, th, nc)
+                ticket = svc.submit_stream(name, th, nc)
+                specs = ticket.specs
+                bases = [s.base for s in specs]
+                ends = [s.words_end for s in specs]
+                if len(parts) != nc or ticket.n_chunks != nc or \
+                        sum(s.length for s in specs) != n or \
+                        bases != [sum(s.length for s in specs[:i])
+                                  for i in range(nc)] or \
+                        ends != sorted(ends) or ends[-1] != n_words:
+                    fail(f"{name} at {th} threads in {nc} chunks: specs do "
+                         f"not tile the asset (ends {ends})")
+                for i, spec in enumerate(specs):
+                    part = want[name][spec.base:spec.base + spec.length]
+                    if not (torch.equal(parts[i], part) and
+                            torch.equal(ticket.synchronize(i), part)):
+                        fail(f"{name} at {th} threads: chunk {i} of {nc} != "
+                             "its symbols")
+                if not (torch.equal(torch.cat(parts), whole)
+                        and torch.equal(ticket.result(), whole)):
+                    fail(f"{name} at {th} threads: {nc} chunks != decode")
+                plans = svc._chunk_plans[(name, th, nc)]
+                if not all(p.covered and _windows_tile(p) for p, _ in plans):
+                    fail(f"{name} at {th} threads: a chunk plan of {nc} is "
+                         "not covered")
+                chunks += 2 * nc
+    if rd.walk_decode_pointer.fills + rd.walk_decode_symbol.fills != fills:
+        fail("a chunk launch filled its output")
+    st = svc.stats
+    compiles, hits = st.compiles, st.plan_hits
+    warm = 0
+    for name in assets:
+        for th in THREADS:
+            for nc in CHUNK_COUNTS:
+                svc.submit_stream(name, th, nc).synchronize(nc - 1)
+                warm += 1
+    st = svc.stats
+    if st.compiles != compiles or st.plan_hits != hits + warm:
+        fail(f"a warm stream resolved {st.compiles - compiles} launchers "
+             f"and hit the plan memo {st.plan_hits - hits} times, expected 0 "
+             f"and {warm}")
+    log(f"[main] streams: {chunks} chunk launches at {THREADS} threads in "
+        f"{CHUNK_COUNTS} chunks equal their symbols and concatenate to "
+        f"decode; specs tile, words_end rises to n_words; every chunk plan "
+        f"covered; a warm round of {warm} streams resolved 0 launchers "
+        f"({warm} plan-memo hits)")
+
+
+def _check_wire_prefixes(svc, want, zenc, zplan, model, dev) -> None:
+    """zipf re-packed as an 8-chunk wire container: its directory equals the
+    serving chunks' prefixes, and each chunk decodes exactly from a stream
+    on the card holding only its ``words_end`` words."""
+    from repro_torch.core import container, recoil
+    from repro_torch.core.engine import DeviceStream, chunk_walk_batch
+    from repro_torch.core.vectorized import WalkBatch
+    buf = container.pack_recoil_chunked(zenc, model, zplan, STREAM_CHUNKS)
+    parsed = container.parse(buf, model.params)
+    batch = WalkBatch.from_splits(
+        recoil.build_split_states(parsed.plan, parsed.final_states), WAYS)
+    specs = chunk_walk_batch(batch, parsed.n_symbols, STREAM_CHUNKS)
+    ends = parsed.chunks.words_end.tolist()
+    if [s.words_end for s in specs] != ends:
+        fail("the chunked container's directory differs from the chunk specs")
+    for spec, n in zip(specs, ends):
+        host = np.ascontiguousarray(parsed.stream[:n], np.uint16)
+        ds = DeviceStream(words=torch.as_tensor(host.view(np.int16),
+                                                device=dev),
+                          host=host, n_words=n, bucket=n)
+        plan = svc.session.prepare(spec.batch, ds, spec.length)
+        if plan.layout != "pointer" or not plan.covered:
+            fail(f"the prefix plan of {n} words is not a covered pointer walk")
+        if not torch.equal(svc.session.execute(plan),
+                           want["zipf"][spec.base:spec.base + spec.length]):
+            fail(f"the chunk at {spec.base} != its symbols from a stream of "
+                 f"its {n}-word prefix")
+    log(f"[main] zipf as an {STREAM_CHUNKS}-chunk wire container "
+        f"({len(buf)} B): each chunk decodes from a stream on the card of "
+        f"only its words_end words {ends} "
+        f"({sum(n % 8 != 0 for n in ends)} not a multiple of 8)")
+
+
+def _check_groups_and_faults(svc, reqs, want, faults) -> None:
+    """``dispatch_group`` of phase 4's mixed group equals ``submit``/
+    ``flush`` and reuses its fused plan; ``prepare_group`` counts no
+    dispatch; a corruption armed at ``service.register`` is rejected for a
+    resident stream; a ``service.dispatch_stream`` fault reaches the
+    ticket's first chunk; ``metrics_text()`` shows stream requests and the
+    profiler runs of both sessions."""
+    from repro_torch.runtime.faultinject import FaultInjected, drop_last_word
+    from repro_torch.runtime.serve import DecodeTicket, StreamTicket
+    fused = svc.stats.fused_dispatches
+    tickets = [DecodeTicket(svc) for _ in reqs]
+    svc.dispatch_group(reqs, tickets)
+    for (name, th), tk in zip(reqs, tickets):
+        if not torch.equal(tk.result(), want[name]):
+            fail(f"dispatch_group {name} at {th} threads != input symbols")
+    plan = svc.prepare_group(reqs)
+    memo = [p for p, _, _ in svc._fused_plans.values()]
+    if svc.stats.fused_dispatches != fused + 1 or memo != [plan]:
+        fail("dispatch_group did not reuse the fused plan, or prepare_group "
+             "counted a dispatch")
+
+    c, gen = svc.content("expo"), svc.generation("expo")
+    faults.arm("service.register", mode="corrupt", mutate=drop_last_word)
+    try:
+        svc.register("expo", c.plan, c.stream, c.final_states)
+    except ValueError as e:
+        rejected = str(e)
+    else:
+        fail("register accepted a corrupted resident stream")
+    if svc.generation("expo") != gen or svc.content("expo") is not c:
+        fail("the rejected registration replaced the content")
+    faults.arm("service.dispatch_stream")
+    ticket = StreamTicket(svc.stream_chunk_count("expo", 16, STREAM_CHUNKS))
+    for call in (lambda: svc.dispatch_stream("expo", 16, STREAM_CHUNKS,
+                                             ticket),
+                 lambda: ticket.chunk(0, timeout=60)):
+        try:
+            call()
+        except FaultInjected:
+            continue
+        fail("the dispatch_stream fault did not reach the ticket")
+    if faults.fires != {"service.register": 1, "service.dispatch_stream": 1}:
+        fail(f"fault firings {faults.fires}")
+
+    values = dict(line.rsplit(" ", 1)
+                  for line in svc.metrics_text().splitlines()
+                  if not line.startswith("#"))
+    shown = {k: float(values.get(k, 0)) for k in (
+        "recoil_service_stream_requests_total",
+        'recoil_profiler_runs_total{session="decode"}',
+        'recoil_profiler_runs_total{session="encode"}')}
+    if not all(shown.values()):
+        fail(f"metrics_text() lacks stream requests or profiler runs: {shown}")
+    log(f"[main] dispatch_group of {len(reqs)} = submit/flush (fused plan "
+        f"reused, prepare_group counted no dispatch); corrupted register "
+        f"rejected ({rejected}); dispatch_stream fault reached chunk 0; "
+        f"metrics_text: {shown}")
 
 
 def _bound(plan, n_words, n_symbols) -> dict:
@@ -1140,6 +1328,152 @@ def phase_times(svc, assets, enc, launches, errs, smi):
                      "ms_by_threads": {str(th): v["ms"]
                                        for th, v in by_threads.items()}})
     return rows
+
+
+def _after_sleep(fn):
+    """Runs ``fn(start)`` with ``start`` a timing event recorded behind a
+    device sleep, so that the host queues all of ``fn``'s launches before
+    the first one starts; ``fn`` returns the events to time against it.
+    Returns their times after ``start`` (ms) and the host's time in
+    ``fn``."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t = time.perf_counter()
+    marks = fn()
+    host_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    return [start.elapsed_time(m) for m in marks], host_ms
+
+
+class _MarkLaunches:
+    """Inside the block, records a timing event on the current stream right
+    after each launch that ``session.execute`` makes: phase 5's own marks
+    between a stream's chunk launches (the service's readiness events do
+    not time).  The wrapper is an instance attribute, removed on exit."""
+
+    def __init__(self, session):
+        self.session, self.marks = session, []
+
+    def __enter__(self):
+        execute = self.session.execute
+
+        def marked(plan):
+            out = execute(plan)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+            return out
+        self.session.execute = marked
+        return self.marks
+
+    def __exit__(self, *exc):
+        del self.session.execute
+
+
+def phase_stream_times(svc, assets, smi) -> None:
+    """Streaming decode at 16 and 2176 threads in STREAM_CHUNKS chunks:
+    the device time from the first chunk's launch to the end of chunk 0
+    and of the last chunk (timing events recorded after each launch by
+    ``_MarkLaunches``), the whole-asset decode's device time at the same
+    threads, and ``submit_stream``'s host enqueue time on a run without
+    the marks, split into the chunks' executor calls (the service
+    profiler's run records) and the rest of the service's work; medians
+    of TIME_REPS."""
+    med = statistics.median
+    prof = svc.obs.profiler
+    for name in assets:
+        for th in STREAM_THREADS:
+            svc.submit_stream(name, th, STREAM_CHUNKS).synchronize(
+                STREAM_CHUNKS - 1)
+            svc.decode(name, th)
+            first, last, whole, host, calls = [], [], [], [], []
+            for _ in range(TIME_REPS):
+                def marked_stream():
+                    with _MarkLaunches(svc.session) as marks:
+                        svc.submit_stream(name, th, STREAM_CHUNKS)
+                    if len(marks) != STREAM_CHUNKS:
+                        fail(f"a stream of {STREAM_CHUNKS} chunks made "
+                             f"{len(marks)} launches")
+                    return marks[0], marks[-1]
+                (a, b), _ = _after_sleep(marked_stream)
+                first.append(a)
+                last.append(b)
+                def stream():
+                    svc.submit_stream(name, th, STREAM_CHUNKS)
+                    return ()
+                run_s = prof.totals("decode")["run_s"]
+                _, h = _after_sleep(stream)
+                calls.append((prof.totals("decode")["run_s"] - run_s) * 1e3)
+                host.append(h)
+
+                def decode():
+                    svc.decode(name, th)
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record()
+                    return (end,)
+                (w,), _ = _after_sleep(decode)
+                whole.append(w)
+            log(f"[times] stream {name} ({svc.layout_for(name)}) at {th} "
+                f"threads in {STREAM_CHUNKS} chunks: device time from the "
+                f"first chunk's launch to chunk 0's end {med(first):.4f} "
+                f"ms, to the last chunk's {med(last):.4f} ms; whole-asset "
+                f"decode {med(whole):.4f} ms; submit_stream host enqueue "
+                f"{med(host):.4f} ms, of which the {STREAM_CHUNKS} executor "
+                f"calls {med(calls):.4f} ms (profiler run records) (medians "
+                f"of {TIME_REPS}); card: {smi}")
+
+
+def phase_observe_cost(svc, assets, smi) -> None:
+    """What the service's instrumentation costs on the host: the warm
+    ``decode`` (host clock to its synchronize) and ``submit_stream`` in
+    STREAM_CHUNKS chunks (host clock to its return, and to the
+    synchronize after it) at OBSERVE_THREADS, on ``svc`` (``observe=True``)
+    and on a service with ``observe=False`` serving the same resident
+    content, the two interleaved call by call; medians of TIME_REPS."""
+    from repro_torch.runtime.serve import DecodeService
+    quiet = DecodeService(svc.session.model, device=svc.session.device,
+                          observe=False)
+    for name in assets:
+        c = svc.content(name)
+        quiet.register(name, c.plan, c.stream, c.final_states)
+        if quiet.layout_for(name) != svc.layout_for(name):
+            fail(f"{name} registered on another layout without observe")
+    med = statistics.median
+    th = OBSERVE_THREADS
+
+    def timed(fn):
+        """Host ms to ``fn``'s return and to the synchronize after it."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t) * 1e3, (time.perf_counter() - t) * 1e3
+    for name in assets:
+        res = {}
+        for s in (svc, quiet):
+            s.decode(name, th)
+            s.submit_stream(name, th, STREAM_CHUNKS).result()
+            res[s] = {"decode": [], "enqueue": [], "stream": []}
+        for _ in range(TIME_REPS):
+            for s in (svc, quiet):
+                _, ms = timed(lambda: s.decode(name, th))
+                res[s]["decode"].append(ms)
+                q, ms = timed(lambda: s.submit_stream(name, th,
+                                                      STREAM_CHUNKS))
+                res[s]["enqueue"].append(q)
+                res[s]["stream"].append(ms)
+        on, off = ({k: med(v) for k, v in res[s].items()}
+                   for s in (svc, quiet))
+        log(f"[times] observe cost {name} at {th} threads, observe=True vs "
+            f"observe=False (interleaved, medians of {TIME_REPS}): warm "
+            f"decode to synchronize {on['decode']:.4f} vs "
+            f"{off['decode']:.4f} ms; submit_stream in {STREAM_CHUNKS} "
+            f"chunks, host enqueue {on['enqueue']:.4f} vs "
+            f"{off['enqueue']:.4f} ms, to synchronize {on['stream']:.4f} vs "
+            f"{off['stream']:.4f} ms; card: {smi}")
 
 
 def _sm_clock_hz() -> float:
@@ -1376,6 +1710,8 @@ def main() -> int:
     phase_plan_kernels(dev, errs)
     svc, assets, enc, launches = phase_main(dev, rd, re_)
     rows = phase_times(svc, assets, enc, launches, errs, smi)
+    phase_stream_times(svc, assets, smi)
+    phase_observe_cost(svc, assets, smi)
     rows += phase_ingest_times(svc, assets, launches, errs, smi, sass)
     print(json.dumps({"kernels": rows}))
     print(smi)

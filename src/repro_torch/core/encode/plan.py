@@ -3,7 +3,8 @@
 The kernels take every size at run time, so a plan needs no cache key and
 no bucketed shapes: it holds the request's device arguments, laid out as
 [B, G, W] group grids with ``G`` the groups the longest content needs, and
-its real sizes.  Padding is inert: padded slots and resume lead slots carry
+its real sizes.  ``key`` names the request's size class for the profiler
+only.  Padding is inert: padded slots and resume lead slots carry
 ``active = False`` (no state change, no emission), and a content's split
 slots past its own ``n_splits - 1`` never emit.
 """
@@ -11,6 +12,8 @@ slots past its own ``n_splits - 1`` never emit.
 from __future__ import annotations
 
 import dataclasses
+
+from ..engine.plan import pow2_bucket
 
 __all__ = ["EncodePlan"]
 
@@ -28,3 +31,11 @@ class EncodePlan:
 
     args: tuple
     n_symbols: int
+
+    @property
+    def key(self) -> tuple:
+        """The profiler's row for this request: contents, groups at their
+        pow2 bucket (which bounds the rows), ways, and whether the model is
+        adaptive.  No cache reads it."""
+        B, G, W = self.args[0].shape
+        return (B, pow2_bucket(G), W, self.args[6] is not None)

@@ -17,7 +17,8 @@ one pipeline call.
 
 The kernels take their sizes at run time, so unlike the reference there is
 no executable cache, no compile count and no fast/full tier: every request
-runs the oracle-complete planner once.
+runs the oracle-complete planner once.  An injected profiler therefore gets
+run records only, never an encode compile record.
 
 Thread model: ``_lock`` guards the stats and the resume LRU; the pipeline
 runs outside it on request-local data.
@@ -101,11 +102,16 @@ class EncoderSession:
     :meth:`extend` reads: least-recently-used tails beyond it are evicted
     (``stats.resume_evictions``) and later extends of those names raise
     ``KeyError`` (the caller falls back to a full re-ingest).
+
+    ``profiler`` is an injected per-plan-key timer (duck-typed — see
+    ``repro_torch.runtime.observability.ExecProfiler``); None keeps
+    :meth:`execute` free of timing branches.
     """
 
     def __init__(self, model, *, device="cuda", window: int = 96,
-                 resume_capacity: int = 64):
+                 resume_capacity: int = 64, profiler=None):
         self.device = resolve_device(device)
+        self.profiler = profiler
         self.model = model
         self.adaptive = np.asarray(model.f).ndim == 2
         self.params = model.params
@@ -149,10 +155,19 @@ class EncoderSession:
             [self._ctx(c) for c in ctxs])
 
     def execute(self, plan: EncodePlan) -> dict:
-        """Run a prepared plan through the ingest pipeline."""
+        """Run a prepared plan through the ingest pipeline, run-timed under
+        ``plan.key`` when profiled.  The pipeline reads its word counts on
+        the host midway, so a run time covers the encode on the device and
+        the planner's enqueue."""
         with self._lock:
             self.stats.encodes += 1
-        return self.executor.run(plan)
+        prof = self.profiler
+        if prof is None:
+            return self.executor.run(plan)
+        t0 = prof.now()
+        out = self.executor.run(plan)
+        prof.record_run("encode", plan.key, prof.now() - t0)
+        return out
 
     # ------------------------------------------------------------------
     # Ingest (device-resident) / encode (host materialization)

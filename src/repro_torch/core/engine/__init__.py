@@ -1,26 +1,29 @@
 """Persistent decode engine: device-resident tables + a bucketed plan cache.
 
   * ``plan``      — the :class:`DecodePlan` IR (bucket selection, inert-row
-                    padding, arg assembly, cache keying) and the microbatch
-                    fusion primitive :func:`concat_walk_batches`;
+                    padding, arg assembly, cache keying), the microbatch
+                    fusion primitive :func:`concat_walk_batches` and the
+                    chunk axis :func:`chunk_walk_batch`;
   * ``executors`` — the ``cuda`` (Hopper kernels) and ``torch`` (plain CPU
                     walks) backends behind one plan/lower/run interface;
   * ``session``   — :class:`DecoderSession`, a thin plans -> launchers cache
                     with exact accounting.
 """
 
-from .plan import (DecodePlan, DeviceStream, SPLIT_FIELDS,
-                   SYMBOL_SPLIT_FIELDS, chunk_bounds, concat_walk_batches,
-                   derive_symbol_layout, kept_windows_tile, pad_split_arrays,
-                   pow2_bucket, with_symbol_layout, work_bucket)
+from .plan import (ChunkSpec, DecodePlan, DeviceStream, SPLIT_FIELDS,
+                   SYMBOL_SPLIT_FIELDS, chunk_bounds, chunk_walk_batch,
+                   concat_walk_batches, derive_symbol_layout,
+                   kept_windows_tile, pad_split_arrays, pow2_bucket,
+                   with_symbol_layout, work_bucket)
 from .executors import (CudaExecutor, Executor, TorchExecutor,
                         make_executor)
 from .session import DecoderSession, EngineStats
 
 __all__ = [
-    "CudaExecutor", "DecodePlan", "DecoderSession", "DeviceStream",
-    "EngineStats", "Executor", "SPLIT_FIELDS", "SYMBOL_SPLIT_FIELDS",
-    "TorchExecutor", "chunk_bounds", "concat_walk_batches",
-    "derive_symbol_layout", "kept_windows_tile", "make_executor",
+    "ChunkSpec", "CudaExecutor", "DecodePlan", "DecoderSession",
+    "DeviceStream", "EngineStats", "Executor", "SPLIT_FIELDS",
+    "SYMBOL_SPLIT_FIELDS", "TorchExecutor", "chunk_bounds",
+    "chunk_walk_batch", "concat_walk_batches", "derive_symbol_layout",
+    "kept_windows_tile", "make_executor",
     "pad_split_arrays", "pow2_bucket", "with_symbol_layout", "work_bucket",
 ]

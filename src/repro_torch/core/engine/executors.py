@@ -75,13 +75,17 @@ class Executor:
         self.luts = luts
         self.device = device
         self.layout = layout
-        # Per-layout plan counts (picked up by ServiceStats).  plan() may
-        # run from any thread, so bumps go through _count_layout's lock.
+        # Per-layout plan counts (picked up by ServiceStats) and stream
+        # upload accounting (picked up by the metrics collectors).  plan()
+        # and upload_stream() may run from any thread, so bumps take
+        # _counts_lock.
         self.layout_plans = {"pointer": 0, "symbol": 0}
-        self._layout_lock = threading.Lock()
+        self.stream_uploads = 0
+        self.stream_upload_bytes = 0
+        self._counts_lock = threading.Lock()
 
     def _count_layout(self, layout: str) -> None:
-        with self._layout_lock:
+        with self._counts_lock:
             self.layout_plans[layout] += 1
 
     def select_layout(self, ds: DeviceStream) -> str:
@@ -105,6 +109,9 @@ class Executor:
         bucket = pow2_bucket(len(host), 1024)
         padded = np.zeros(bucket, np.uint16)
         padded[:len(host)] = host
+        with self._counts_lock:
+            self.stream_uploads += 1
+            self.stream_upload_bytes += int(padded.nbytes)
         return DeviceStream(
             words=torch.as_tensor(padded.view(np.int16), device=self.device),
             host=host, n_words=len(host), bucket=bucket)

@@ -280,9 +280,78 @@ def with_symbol_layout(ds: DeviceStream, k_of_word: np.ndarray,
     return dataclasses.replace(ds, by_symbol=by, sym_bucket=sym_bucket)
 
 
+# ---------------------------------------------------------------------------
+# Chunk axis: streaming decode over split-row windows
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ChunkSpec:
+    """One chunk of a chunked decode: split rows ``[r0, r1)`` of the full
+    WalkBatch, rebased to write output window ``[0, length)``.
+
+    ``base``/``length`` locate the chunk in the content's symbol space
+    (``out[base : base + length]`` of the whole-asset decode).  The rebased
+    ``out_base`` is negative for every chunk after the first — the walks
+    drop positions below 0, and only kept symbols (which land in range)
+    are written.  ``words_end`` is the stream-prefix requirement: chunk
+    rows read word offsets ``<= words_end - 1`` only, so the chunk is
+    decodable once the first ``words_end`` words have arrived (the wire
+    directory in ``core.container`` carries exactly these cumulative
+    counts).
+    """
+
+    batch: WalkBatch
+    base: int
+    length: int
+    words_end: int
+
+
 def chunk_bounds(n_rows: int, n_chunks: int) -> list[tuple[int, int]]:
-    """Even, contiguous partition of split rows into chunks (the wire
-    directory of ``container.pack_recoil_chunked`` uses it)."""
+    """Even, contiguous partition of split rows into chunks.  Shared by the
+    serving plans and the wire directory of
+    ``container.pack_recoil_chunked`` so both agree on boundaries."""
     n_chunks = max(1, min(int(n_chunks), n_rows))
     cuts = [round(n_rows * c / n_chunks) for c in range(n_chunks + 1)]
     return [(cuts[c], cuts[c + 1]) for c in range(n_chunks)]
+
+
+def chunk_walk_batch(batch: WalkBatch, n_symbols: int,
+                     n_chunks: int) -> list[ChunkSpec]:
+    """Slice a whole-asset WalkBatch along the chunk axis.
+
+    Rows are completion-ordered (``build_split_states``), so contiguous row
+    runs keep contiguous, ascending symbol windows; chunk c's output is
+    exactly ``out[keep_lo[r0] : keep_hi[r1 - 1]]`` of the full decode and
+    its step count is recomputed from its own rows (early chunks of a deep
+    asset run far fewer steps than the whole-asset walk).  Requires an
+    un-fused batch (``out_base == 0``): chunking happens per content,
+    before any microbatch fusion.
+    """
+    S = batch.k.shape[0]
+    if batch.out_base.any():
+        raise ValueError("chunking expects an un-fused batch (out_base == 0)")
+    if int(batch.keep_hi[-1]) != n_symbols:
+        raise ValueError(
+            f"batch covers [0, {int(batch.keep_hi[-1])}) but n_symbols="
+            f"{n_symbols}")
+    W = batch.ways
+    specs = []
+    for r0, r1 in chunk_bounds(S, n_chunks):
+        base = int(batch.keep_lo[r0])
+        length = int(batch.keep_hi[r1 - 1]) - base
+        rows = slice(r0, r1)
+        g_hi = batch.g_hi[rows]
+        stop = batch.stop[rows]
+        n_steps = int((g_hi - stop // W + 1).max())
+        sub = WalkBatch(
+            k=batch.k[rows], y=batch.y[rows], x0=batch.x0[rows],
+            q0=batch.q0[rows], g_hi=g_hi, start=batch.start[rows],
+            stop=stop, keep_lo=batch.keep_lo[rows],
+            keep_hi=batch.keep_hi[rows],
+            out_base=np.full(r1 - r0, -base, np.int32),
+            n_steps=n_steps, ways=W,
+            sym_base=(None if batch.sym_base is None
+                      else batch.sym_base[rows]))
+        specs.append(ChunkSpec(batch=sub, base=base, length=length,
+                               words_end=int(batch.q0[rows].max()) + 1))
+    return specs

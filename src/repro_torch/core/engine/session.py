@@ -4,7 +4,9 @@ The session owns exactly three things:
 
   * device-resident slot tables, uploaded once at construction;
   * the plan cache — ``plan.key -> launcher`` — so ``stats.compiles``
-    counts the distinct bucketed shapes this session has resolved exactly;
+    counts the distinct bucketed shapes this session has resolved exactly
+    (no compiler runs per key: the kernels take their sizes at run time;
+    the name is the reference's, whose counters and profiler read it);
   * request accounting (:class:`EngineStats`).
 
 All backend knowledge lives in the executor (``cuda`` / ``torch`` — see
@@ -36,7 +38,12 @@ from .plan import DecodePlan, DeviceStream
 
 @dataclasses.dataclass
 class EngineStats:
-    compiles: int = 0      # launchers resolved (plan-key misses)
+    """Request accounting.  ``compiles`` counts plan-key misses (launchers
+    resolved), as the reference's does; it keeps the reference's name
+    because ``ServiceStats.compiles``, ``recoil_service_compiles_total`` and
+    the profiler's compile records read it in both packages."""
+
+    compiles: int = 0      # plan-key misses: launchers resolved
     cache_hits: int = 0    # decodes served by an already-resolved key
     decodes: int = 0
 
@@ -48,26 +55,35 @@ class DecoderSession:
     """Device-resident Recoil decoder with a bucketed plan cache.
 
     ``device`` defaults to ``"cuda"``; with no card present that raises —
-    pass ``device="cpu"`` for the plain torch walks.  ``impl=None`` picks
-    ``"cuda"`` (the Hopper kernels) on a CUDA device and ``"torch"`` on the
-    CPU; each impl runs only on its own device type, so the plain walk never
-    serves a session on the card.  ``packed_lut`` defaults to auto: the §4.4
-    packed table whenever the model fits it.
+    pass ``device="cpu"`` for the plain torch walks.  The device fixes the
+    backend, read back as :attr:`impl`: ``"cuda"`` (the Hopper kernels) on a
+    CUDA device, ``"torch"`` on the CPU, so the plain walk never serves a
+    session on the card.  ``impl=`` is accepted for the reference's
+    signature only and raises unless it names that backend.  ``packed_lut``
+    defaults to auto: the §4.4 packed table whenever the model fits it.
 
     ``layout`` is the stream-layout policy: ``"auto"`` (default) runs the
     pointer-free symbol-indexed walk for handles that carry a
     ``words_by_symbol`` permutation and the classic pointer walk otherwise;
     ``"pointer"``/``"symbol"`` force one layout.
+
+    ``profiler`` is an injected per-plan-key timer (duck-typed — see
+    ``repro_torch.runtime.observability.ExecProfiler``; core never imports
+    runtime).  None keeps :meth:`execute` free of timing branches.
     """
 
     def __init__(self, model: StaticModel, *, device="cuda", impl=None,
-                 packed_lut: bool | None = None, layout: str = "auto"):
+                 packed_lut: bool | None = None, layout: str = "auto",
+                 profiler=None):
         from ...kernels.rans_decode.ops import _luts, packed_lut_ok
         self.device = resolve_device(device)
-        if impl is None:
-            impl = "cuda" if self.device.type == "cuda" else "torch"
+        own = "cuda" if self.device.type == "cuda" else "torch"
+        if impl is not None and impl != own:
+            raise ValueError(
+                f"impl={impl!r} does not run on {self.device}: the device "
+                f"fixes the impl ({own!r})")
+        self.profiler = profiler
         self.model = model
-        self.impl = impl
         if packed_lut is None:
             packed_lut = packed_lut_ok(model)
         elif packed_lut and not packed_lut_ok(model):
@@ -75,11 +91,16 @@ class DecoderSession:
         self.packed_lut = packed_lut
         # Device-resident slot tables, uploaded once.
         self._luts = _luts(model, packed_lut, self.device)
-        self.executor = make_executor(impl, model, packed_lut, self._luts,
+        self.executor = make_executor(own, model, packed_lut, self._luts,
                                       self.device, layout=layout)
         self._exec: dict[tuple, object] = {}
         self._lock = threading.Lock()   # guards _exec + stats (see header)
         self.stats = EngineStats()
+
+    @property
+    def impl(self) -> str:
+        """The backend the device fixes: ``"cuda"`` or ``"torch"``."""
+        return self.executor.impl
 
     # ------------------------------------------------------------------
     # Streams
@@ -134,17 +155,34 @@ class DecoderSession:
 
     def execute(self, plan: DecodePlan) -> torch.Tensor:
         """Run a prepared plan: resolve its launcher on a key miss, else
-        reuse it; the launch runs outside the lock."""
+        reuse it; the launch runs outside the lock.
+
+        With a profiler injected, the launcher resolution (under the lock,
+        recorded as the key's compile once per key miss) and the launch
+        (outside it) are timed per plan key.  The launch returns once the
+        kernel is queued, so a run time is the host-side enqueue cost, as
+        the reference's is its dispatch cost; no synchronize is added."""
+        prof = self.profiler
         with self._lock:
             self.stats.decodes += 1
             fn = self._exec.get(plan.key)
             if fn is None:
-                fn = self.executor.lower(plan)
+                if prof is None:
+                    fn = self.executor.lower(plan)
+                else:
+                    t0 = prof.now()
+                    fn = self.executor.lower(plan)
+                    prof.record_compile("decode", plan.key, prof.now() - t0)
                 self._exec[plan.key] = fn
                 self.stats.compiles += 1
             else:
                 self.stats.cache_hits += 1
-        return self.executor.run(fn, plan)
+        if prof is None:
+            return self.executor.run(fn, plan)
+        t0 = prof.now()
+        out = self.executor.run(fn, plan)
+        prof.record_run("decode", plan.key, prof.now() - t0)
+        return out
 
     def decode_batch(self, batch: WalkBatch, stream,
                      n_symbols: int) -> torch.Tensor:

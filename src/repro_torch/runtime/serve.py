@@ -26,6 +26,15 @@ without visiting the host).  Two request paths:
     full microbatch (``microbatch`` requests pending), a submit arriving
     after the oldest pending request has waited ``max_delay_ms``, or a
     ``DecodeTicket.result()`` on a still-pending ticket.
+
+Beside them: ``submit_stream``/``decode_chunks`` decode an asset as
+pipelined chunks (the chunk axis, ``engine.plan.chunk_walk_batch``), and
+``dispatch_group``/``prepare_group`` are the group backend a scheduler
+drives.  Every service carries an :class:`~repro_torch.runtime.
+observability.Observability` (per-ticket traces, the launcher profiler of
+both sessions, ``metrics``/``metrics_text``) and a fault injector
+(``faults=``, :mod:`repro_torch.runtime.faultinject`) whose six service
+fault points are no-ops unless armed.
 """
 
 from __future__ import annotations
@@ -38,12 +47,15 @@ import numpy as np
 import torch
 
 from ..core.encode import EncoderSession
-from ..core.engine import (DecodePlan, DecoderSession, DeviceStream,
+from ..core.engine import (ChunkSpec, DecodePlan, DecoderSession,
+                           DeviceStream, chunk_walk_batch,
                            concat_walk_batches, pow2_bucket,
                            with_symbol_layout)
 from ..core.rans import StaticModel
 from ..core.recoil import RecoilPlan, build_split_states, combine_plan
 from ..core.vectorized import WalkBatch
+from .faultinject import NULL_INJECTOR
+from .observability import NULL_TRACE, Observability
 
 
 @dataclasses.dataclass
@@ -67,6 +79,7 @@ class ServiceStats:
     flushes: int
     ingests: int = 0           # contents registered through the encode engine
     extends: int = 0           # incremental re-ingests (suffix-only encodes)
+    stream_requests: int = 0   # chunked streaming decodes (submit_stream)
     symbol_plans: int = 0      # requests planned on the symbol-indexed layout
     pointer_plans: int = 0     # requests planned on the pointer-walk fallback
 
@@ -75,16 +88,26 @@ class ServiceStats:
 
 
 class DecodeTicket:
-    """Handle for a submitted (possibly coalesced) decode request."""
+    """Handle for a submitted (possibly coalesced) decode request.
 
-    __slots__ = ("_svc", "out", "err")
+    ``trace`` is the ticket's span context — a live
+    :class:`~repro_torch.runtime.observability.Trace` on traced paths,
+    :data:`NULL_TRACE` for tickets made outside ``submit`` and disabled
+    tracing, so dispatch instrumentation never branches on ticket
+    provenance.
+    """
+
+    __slots__ = ("_svc", "out", "err", "trace")
 
     def __init__(self, svc: "DecodeService"):
         self._svc = svc
         self.out = None
         self.err = None
+        self.trace = NULL_TRACE
 
     def _fulfill(self, out=None, err=None) -> None:
+        """Dispatch completion hook; keep all result delivery going through
+        it."""
         self.out = out
         self.err = err
 
@@ -101,6 +124,95 @@ class DecodeTicket:
         return self.out
 
 
+class StreamTicket:
+    """Handle for a chunked streaming decode.
+
+    The asset's thinned split rows are partitioned into ``n_chunks``
+    completion-ordered chunks (``engine.plan.chunk_walk_batch``); each chunk
+    is its own (bucketed, cached) launch, so the first symbols are ready
+    after ~1/n_chunks of the asset's decode work instead of all of it.
+    ``chunk(i)`` blocks until chunk ``i`` has been launched and returns its
+    device symbol tensor (symbols ``base..base+length`` of the asset);
+    iterating the ticket yields the chunks in order.  ``result()``
+    concatenates them back into the whole asset, on the device.
+
+    Readiness: a launch returns once the kernel is queued, so on the card
+    ``dispatch_stream`` records one CUDA event on the current stream right
+    after each chunk's launch, and ``synchronize(i)`` waits for chunk ``i``
+    alone (on the CPU the chunk is ready when launched).  Timing hooks
+    (``submitted_at``/``first_chunk_at``/``completed_at``) are host clocks
+    at launch.
+    """
+
+    __slots__ = ("n_chunks", "specs", "err", "submitted_at",
+                 "first_chunk_at", "completed_at", "_chunks", "_events",
+                 "_ready", "trace")
+
+    def __init__(self, n_chunks: int):
+        self.n_chunks = n_chunks
+        self.specs: list[ChunkSpec] | None = None   # set at dispatch time
+        self.err: Exception | None = None
+        self.trace = NULL_TRACE
+        self.submitted_at = time.perf_counter()
+        self.first_chunk_at: float | None = None
+        self.completed_at: float | None = None
+        self._chunks = [None] * n_chunks
+        self._events = [threading.Event() for _ in range(n_chunks)]
+        self._ready: list = [None] * n_chunks   # torch.cuda.Event per chunk
+
+    def _fulfill_chunk(self, i: int, out, ready=None) -> None:
+        self._chunks[i] = out
+        self._ready[i] = ready
+        now = time.perf_counter()
+        if i == 0:
+            self.first_chunk_at = now
+        if i == self.n_chunks - 1:
+            self.completed_at = now
+        self._events[i].set()
+
+    def _fail(self, err: Exception) -> None:
+        self.err = err
+        for ev in self._events:
+            ev.set()
+
+    def chunk(self, i: int, timeout: float | None = None) -> torch.Tensor:
+        """Device int32 symbols of chunk ``i`` (launched, possibly still
+        running — :meth:`synchronize` waits for it)."""
+        if not self._events[i].wait(timeout):
+            raise TimeoutError(f"chunk {i} not dispatched within {timeout}s")
+        if self.err is not None:
+            raise self.err
+        return self._chunks[i]
+
+    def synchronize(self, i: int,
+                    timeout: float | None = None) -> torch.Tensor:
+        """Chunk ``i``'s symbols once the device has written them: waits for
+        its launch (as :meth:`chunk`), then for the event recorded after
+        it, and for no later chunk."""
+        out = self.chunk(i, timeout)
+        if self._ready[i] is not None:
+            self._ready[i].synchronize()
+        return out
+
+    def __iter__(self):
+        for i in range(self.n_chunks):
+            yield self.chunk(i)
+
+    def result(self) -> torch.Tensor:
+        parts = list(self)
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _launched(out: torch.Tensor):
+    """A readiness event recorded on the current stream right after
+    ``out``'s launch (None on the CPU, where the launch ran to its end)."""
+    if out.device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(out.device))
+    return ev
+
+
 class DecodeService:
     """Serve Recoil-encoded content to clients of any parallel capacity.
 
@@ -111,6 +223,12 @@ class DecodeService:
     bucketed launch.  ``device`` defaults to ``"cuda"`` (the Hopper
     kernels); pass ``device="cpu"`` for the plain torch walks.  See the
     module docstring for the two request paths.
+
+    ``observe=False`` turns the instrumentation off (:data:`NULL_TRACE`
+    everywhere, no profiler timing branches; the pull metrics remain).
+    ``faults`` is a :class:`~repro_torch.runtime.faultinject.FaultInjector`
+    that drives the unhappy paths in tests; the default is the shared
+    no-op :data:`~repro_torch.runtime.faultinject.NULL_INJECTOR`.
     """
 
     # Fused-plan memo bound (FIFO eviction): each entry pins fused device
@@ -119,8 +237,17 @@ class DecodeService:
 
     def __init__(self, model: StaticModel, *, device="cuda",
                  microbatch: int = 8, max_delay_ms: float = 50.0,
-                 **session_kw):
-        self.session = DecoderSession(model, device=device, **session_kw)
+                 observe: bool = True, trace_capacity: int = 1024,
+                 faults=None, **session_kw):
+        # Observability first: the decode/encode sessions take its shared
+        # profiler at construction.
+        self.obs = Observability(enabled=observe,
+                                 trace_capacity=trace_capacity)
+        self.faults = faults if faults is not None else NULL_INJECTOR
+        self.session = DecoderSession(model, device=device,
+                                      profiler=self.obs.profiler,
+                                      **session_kw)
+        self.obs.attach_service(self)
         self.microbatch = int(microbatch)
         self.max_delay_ms = float(max_delay_ms)
         self._encoder: EncoderSession | None = None   # built on first ingest
@@ -132,6 +259,11 @@ class DecodeService:
         # thinned WalkBatch (fusable) and the full DecodePlan (single path).
         self._batches: dict[tuple, tuple[WalkBatch, int]] = {}
         self._plans: dict[tuple, DecodePlan] = {}
+        # (name, n_threads, n_chunks) -> [(DecodePlan, ChunkSpec), ...]:
+        # the chunk axis of the streaming path.  Each chunk's plan hits the
+        # same bucketed launcher cache as whole-asset requests, so a warm
+        # stream is n_chunks cached launches with zero host prep.
+        self._chunk_plans: dict[tuple, list] = {}
         # Fused-dispatch memo: a request GROUP that recurs reuses its fused
         # DecodePlan + slice offsets, so a warm flush is one cached launch.
         self._fused_plans: dict[tuple, tuple[DecodePlan, list[int], int]] = {}
@@ -144,6 +276,7 @@ class DecodeService:
         self._flushes = 0
         self._ingests = 0
         self._extends = 0
+        self._streams = 0
         # Service lock: guards content/memos/pending/counters.  Reentrant
         # because register() flushes stale pending requests while already
         # holding it.  Launches run outside it.
@@ -164,6 +297,11 @@ class DecodeService:
         bytes are untouched; decode just drops the stream pointer.  Content
         without a log (e.g. parsed off the wire) serves via the pointer
         walk."""
+        # Corruption fault point BEFORE validation: an armed corruptor
+        # mutates the payload here, and the validation below must reject it
+        # loudly — proof that a poisoned container cannot reach serving
+        # state.
+        stream = self.faults.corrupt("service.register", stream, name=name)
         _validate_content(self.session.model, plan, stream, final_states,
                           enc_model=model)
         with self._lock:
@@ -180,7 +318,8 @@ class DecodeService:
                 stream=stream, plan=plan,
                 final_states=np.asarray(final_states, np.uint32))
             self._generations[name] = self._generations.get(name, 0) + 1
-            for cache in (self._batches, self._plans):   # re-registration
+            for cache in (self._batches, self._plans,    # re-registration
+                          self._chunk_plans):
                 for key in [k for k in cache if k[0] == name]:
                     del cache[key]
             self._fused_plans.clear()
@@ -204,6 +343,21 @@ class DecodeService:
         with self._lock:
             return self._contents[name]
 
+    def content_snapshot(self, name: str) -> tuple[int, _Content]:
+        """``(generation, content)`` read atomically under the service lock.
+
+        A two-step read — ``generation()`` then ``content()`` — could
+        interleave with a concurrent ``extend()`` re-registration and pair
+        the OLD generation tag with the NEW bytes (or vice versa).  One lock
+        hold makes the pair consistent by construction; derivations tagged
+        with this generation are guaranteed to be of these bytes.  Raises
+        ``KeyError`` for unregistered names."""
+        with self._lock:
+            gen = self._generations.get(name, 0)
+            if gen == 0:
+                raise KeyError(f"content {name!r} is not registered")
+            return gen, self._contents[name]
+
     # ------------------------------------------------------------------
     # Ingest (encode engine -> registration, stream stays on the device)
     # ------------------------------------------------------------------
@@ -212,6 +366,7 @@ class DecodeService:
         """Encode and split-plan ``symbols`` on the service's device and
         register the result under ``name``; only the split metadata visits
         the host.  Returns the registered :class:`RecoilPlan`."""
+        self.faults.fire("service.ingest", name=name)
         res = self._encode_session().ingest(symbols, n_splits, name=name)
         self.register(name, res.plan, res.stream, res.final_states)
         with self._lock:
@@ -226,6 +381,7 @@ class DecodeService:
         generation and drops its plan memos.  Raises ``KeyError`` when
         ``name`` has no resumable encoder state (fall back to
         :meth:`ingest`)."""
+        self.faults.fire("service.extend", name=name)
         res = self._encode_session().extend(name, delta)
         self.register(name, res.plan, res.stream, res.final_states)
         with self._lock:
@@ -254,7 +410,8 @@ class DecodeService:
         with self._lock:
             if self._encoder is None:
                 self._encoder = EncoderSession(self.session.model,
-                                               device=self.session.device)
+                                               device=self.session.device,
+                                               profiler=self.obs.profiler)
             return self._encoder
 
     # ------------------------------------------------------------------
@@ -300,10 +457,109 @@ class DecodeService:
                 self._plan_hits += 1
             return plan
 
+    def evict_prepared(self, name: str, n_threads: int) -> bool:
+        """Drop the memoized plan + thinned batch for one (name, capability)
+        pair (a cache under an entry budget — the pair re-derives
+        bit-exactly on its next request).  Returns whether anything was
+        dropped."""
+        key = (name, int(n_threads))
+        with self._lock:
+            dropped = self._plans.pop(key, None) is not None
+            dropped = (self._batches.pop(key, None) is not None) or dropped
+            return dropped
+
     def decode(self, name: str, n_threads: int) -> torch.Tensor:
         """Decode registered content at the client's parallelism; returns a
         device int32 symbol tensor (no host round-trip)."""
         return self.session.execute(self.prepare_request(name, n_threads))
+
+    # ------------------------------------------------------------------
+    # Chunked streaming path
+    # ------------------------------------------------------------------
+
+    def _chunked_plans(self, name: str, n_threads: int,
+                       n_chunks: int) -> list:
+        """Memoized per-chunk plans (caller holds ``_lock``): the request's
+        thinned rows partitioned completion-ordered into chunks
+        (``chunk_walk_batch``), each prepared as its own bucketed
+        :class:`DecodePlan` against the SAME resident stream — chunk ``k``
+        only reads the stream-word prefix ``specs[k].words_end``, which is
+        what makes decode-while-arriving sound."""
+        key = (name, n_threads, int(n_chunks))
+        hit = self._chunk_plans.get(key)
+        if hit is not None:
+            self._plan_hits += 1
+            return hit
+        batch, n = self._thinned_batch(name, n_threads)
+        stream = self._contents[name].stream
+        specs = chunk_walk_batch(batch, n, n_chunks)
+        plans = [(self.session.prepare(s.batch, stream, s.length), s)
+                 for s in specs]
+        self._chunk_plans[key] = plans
+        return plans
+
+    def stream_chunk_count(self, name: str, n_threads: int,
+                           n_chunks: int) -> int:
+        """The chunk count a stream request will actually yield
+        (``n_chunks`` clamped to the request's split-row count — a chunk
+        must hold at least one split row)."""
+        with self._lock:
+            rows = min(int(n_threads), self._contents[name].plan.n_threads)
+        return max(1, min(int(n_chunks), rows))
+
+    def decode_chunks(self, name: str, n_threads: int,
+                      n_chunks: int) -> list[torch.Tensor]:
+        """Decode registered content as ``n_chunks`` pipelined launches;
+        returns the per-chunk device symbol tensors in asset order.  Each
+        launch is asynchronous, so chunk 0 is ready after ~1/n_chunks of the
+        asset's decode work while later chunks are still running —
+        concatenating the parts equals :meth:`decode` exactly."""
+        with self._lock:
+            self._streams += 1
+            plans = self._chunked_plans(name, n_threads, n_chunks)
+        return [self.session.execute(p) for p, _ in plans]
+
+    def submit_stream(self, name: str, n_threads: int,
+                      n_chunks: int = 8) -> StreamTicket:
+        """Chunked streaming decode returning a :class:`StreamTicket` that
+        yields per-chunk results as they complete.  The chunks are launched
+        inline — still pipelined, because each launch is queued
+        asynchronously."""
+        ticket = StreamTicket(self.stream_chunk_count(name, n_threads,
+                                                      n_chunks))
+        ticket.trace = self.obs.tracer.start(
+            "stream", name=name, t0=ticket.submitted_at,
+            n_threads=n_threads, path="sync")
+        ticket.trace.phase("admission")
+        return self.dispatch_stream(name, n_threads, n_chunks, ticket)
+
+    def dispatch_stream(self, name: str, n_threads: int, n_chunks: int,
+                        ticket: StreamTicket) -> StreamTicket:
+        """Plan under the service lock, launch each chunk OUTSIDE it, and
+        record each chunk's readiness event.  ``ticket.n_chunks`` must
+        equal :meth:`stream_chunk_count` for the request."""
+        try:
+            self.faults.fire("service.dispatch_stream", name=name)
+            with self._lock:
+                self._streams += 1
+                plans = self._chunked_plans(name, n_threads, n_chunks)
+            if len(plans) != ticket.n_chunks:
+                raise ValueError(
+                    f"ticket expects {ticket.n_chunks} chunks but the plan "
+                    f"yields {len(plans)} — content re-registered with "
+                    f"fewer splits between submit and dispatch")
+            ticket.trace.phase("dispatch", chunks=len(plans))
+            ticket.specs = [spec for _, spec in plans]
+            for i, (plan, _) in enumerate(plans):
+                out = self.session.execute(plan)
+                ticket._fulfill_chunk(i, out, _launched(out))
+            ticket.trace.phase("execute")
+            ticket.trace.finish("ok")
+        except Exception as e:
+            ticket._fail(e)
+            ticket.trace.finish("error", error=repr(e))
+            raise
+        return ticket
 
     # ------------------------------------------------------------------
     # Microbatched path
@@ -320,6 +576,12 @@ class DecodeService:
             key = (name, n_threads)
             batch, n = self._thinned_batch(name, n_threads)
             ticket = DecodeTicket(self)
+            # Spans: admission = host prep at submit time (the thinning
+            # above); the wait until flush is "queue".
+            ticket.trace = self.obs.tracer.start(
+                "decode", name=name, t0=now, n_threads=n_threads,
+                path="sync")
+            ticket.trace.phase("admission")
             if not self._pending:
                 self._pending_t0 = now
             self._pending.append((ticket, key, batch, n))
@@ -334,22 +596,96 @@ class DecodeService:
             reqs, self._pending = self._pending, []
         if not reqs:
             return
+        tq = time.perf_counter()
+        for ticket, _, _, _ in reqs:
+            ticket.trace.phase("queue", tq)
+            ticket.trace.phase("coalesce", tq)   # coalesced at submit
         try:
             self._dispatch(reqs)
         except Exception as e:
             for ticket, _, _, _ in reqs:
                 ticket._fulfill(err=e)
+                ticket.trace.finish("error", error=repr(e))
             raise
 
     def flush(self) -> None:
         """Dispatch all pending requests as one fused launch."""
         self._flush_pending()
 
-    def _group_plan(self, reqs):
+    def dispatch_group(self, requests, tickets) -> None:
+        """Group backend: dispatch ``requests = [(name, n_threads), ...]``
+        as one fused launch, fulfilling ``tickets`` positionally.
+
+        Unlike :meth:`submit`, the thinned batches are built HERE — at
+        dispatch time, under the service lock — so a group formed while
+        content is re-registered can never mix one request's old split
+        metadata with another's new stream: every request in the group is
+        prepared against one consistent content snapshot.  Registration is
+        checked ONCE per distinct name at group build, under the same lock
+        hold that builds the batches (see :meth:`content_snapshot`).  On
+        any error every ticket carries it."""
+        try:
+            if len(requests) != len(tickets):
+                # Tickets fulfill positionally: a silent zip over mismatched
+                # lengths would strand the surplus tickets forever — fail
+                # the WHOLE group loudly so every ticket carries the error.
+                raise ValueError(
+                    f"dispatch_group got {len(requests)} requests but "
+                    f"{len(tickets)} tickets — they must align positionally")
+            self.faults.fire("service.dispatch_group",
+                             names=[name for name, _ in requests])
+            with self._lock:
+                missing = sorted({
+                    name for name, _ in requests
+                    if self._generations.get(name, 0) == 0})
+                if missing:
+                    raise KeyError(
+                        f"content not registered: {', '.join(missing)}")
+                reqs = []
+                for ticket, (name, n_threads) in zip(tickets, requests):
+                    batch, n = self._thinned_batch(name, n_threads)
+                    reqs.append((ticket, (name, n_threads), batch, n))
+        except Exception as e:
+            for ticket in tickets:
+                ticket._fulfill(err=e)
+                ticket.trace.finish("error", error=repr(e))
+            raise
+        tc = time.perf_counter()
+        for ticket in tickets:
+            ticket.trace.phase("coalesce", tc)
+        try:
+            self._dispatch(reqs)
+        except Exception as e:
+            for ticket, _, _, _ in reqs:
+                ticket._fulfill(err=e)
+                ticket.trace.finish("error", error=repr(e))
+            raise
+
+    def prepare_group(self, requests) -> DecodePlan:
+        """Build (and memoize) the fused :class:`DecodePlan` a request group
+        ``[(name, n_threads), ...]`` would dispatch, WITHOUT launching it.
+
+        A warmer's probe: pairing this with ``session.is_compiled(plan)``
+        finds the group shapes whose launcher is not resolved yet.  Returns
+        the plan only — tickets and output slicing stay with
+        :meth:`dispatch_group` — and counts no dispatch."""
+        reqs = []
+        with self._lock:
+            for name, n_threads in requests:
+                if self._generations.get(name, 0) == 0:
+                    raise KeyError(f"content {name!r} is not registered")
+                batch, n = self._thinned_batch(name, n_threads)
+                reqs.append((None, (name, n_threads), batch, n))
+            plan, _sym_off = self._group_plan(reqs, record=False)
+        return plan
+
+    def _group_plan(self, reqs, record: bool = True):
         """Resolve the (memoized) plan for a built request group.  Caller
         holds ``_lock``.  MUTATES ``reqs`` into canonical order (the fused
         layout is arrival-order independent, so any permutation of the same
-        group shares one memo entry; tickets travel with their request)."""
+        group shares one memo entry; tickets travel with their request).
+        ``record=False`` skips the dispatch counters (probes must not
+        inflate ``fused_dispatches``)."""
         if len(reqs) == 1:
             _, key, batch, n = reqs[0]
             plan = self._plans.get(key)
@@ -358,8 +694,9 @@ class DecodeService:
                     batch, self._contents[key[0]].stream, n)
                 self._plans[key] = plan
             return plan, None
-        self._fused += 1
-        self._coalesced += len(reqs)
+        if record:
+            self._fused += 1
+            self._coalesced += len(reqs)
         reqs.sort(key=lambda r: r[1])
         group = tuple(key for _, key, _, _ in reqs)
         hit = self._fused_plans.get(group)
@@ -373,16 +710,41 @@ class DecodeService:
         return plan, sym_off
 
     def _dispatch(self, reqs) -> None:
-        """Plan under the service lock; launch outside it."""
+        """Plan under the service lock; launch outside it.
+
+        Span marks: plan resolution closes "dispatch", the launch closes
+        "execute", fulfillment closes "delivery".  The path stays
+        asynchronous: the execute span is the host-side enqueue cost and
+        the caller's ``result()`` owns the device wait (a traced flush that
+        synchronized would charge instrumentation for a wait the untraced
+        path never does)."""
         with self._lock:
             self._flushes += 1
             plan, sym_off = self._group_plan(reqs)
+        traces = [t.trace for t, _, _, _ in reqs]
+        tp = time.perf_counter()
+        for tr in traces:
+            tr.phase("dispatch", tp)
+        self.faults.fire("service.execute", group=len(reqs))
         out = self.session.execute(plan)
+        tx = time.perf_counter()
+        for tr in traces:
+            tr.phase("execute", tx, group=len(reqs))
+        # Per-ticket finish, right after the ticket's own fulfillment: each
+        # trace's span-sum then equals its own end-to-end latency.
         if sym_off is None:
-            reqs[0][0]._fulfill(out=out)
+            ticket = reqs[0][0]
+            ticket._fulfill(out=out)
+            td = time.perf_counter()
+            ticket.trace.phase("delivery", td)
+            ticket.trace.finish("ok", td)
             return
         for (ticket, _, _, n), off in zip(reqs, sym_off):
             ticket._fulfill(out=out[off:off + n])
+            if ticket.trace.live:
+                td = time.perf_counter()
+                ticket.trace.phase("delivery", td)
+                ticket.trace.finish("ok", td)
 
     def _prepare_fused(self, reqs) -> tuple[DecodePlan, list[int], int]:
         streams: dict[int, DeviceStream] = {}
@@ -408,6 +770,15 @@ class DecodeService:
              for _, key, _, _ in reqs])
         return self.session.prepare(fused, fused_ds, total), sym_off, total
 
+    def metrics(self) -> dict:
+        """The unified metrics snapshot (native instruments + every
+        collector) — see ``repro_torch.runtime.observability.SCHEMA``."""
+        return self.obs.snapshot()
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition of :meth:`metrics`."""
+        return self.obs.exposition()
+
     @property
     def stats(self) -> ServiceStats:
         e = self.session.stats
@@ -420,6 +791,7 @@ class DecodeService:
                 coalesced_requests=self._coalesced,
                 fused_dispatches=self._fused, flushes=self._flushes,
                 ingests=self._ingests, extends=self._extends,
+                stream_requests=self._streams,
                 symbol_plans=plans["symbol"], pointer_plans=plans["pointer"])
 
 

@@ -668,3 +668,85 @@ def test_ingest_round_trip_on_the_card(cuda_device):
     assert torch.equal(on_card.stream.by_symbol.cpu(), want.stream.by_symbol)
     assert [p.offset for p in on_card.plan.points] == \
         [p.offset for p in want.plan.points]
+
+
+# ---------------------------------------------------------------------------
+# Chunked streaming decode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layout", ["symbol", "pointer"])
+@in_child
+def test_chunked_decode_on_the_card(cuda_device, layout):
+    """``decode_chunks`` and ``submit_stream`` on the card: each chunk is a
+    walk launch whose output equals its slice of the symbols and the plain
+    walk's chunk on the CPU; ``synchronize(i)`` waits on chunk i's event;
+    the chunks concatenate to ``decode``; a warm stream resolves nothing."""
+    import torch
+    from repro_torch.core import recoil
+    from repro_torch.kernels.rans_decode import rans_decode as rd
+    from repro_torch.runtime.serve import DecodeService
+    syms, model, enc, _ = _content(41, 60_001, 32, 11, 64)
+    plan = recoil.plan_splits(enc, 64)
+    log = enc.k_of_word if layout == "symbol" else None
+    svc = DecodeService(model)
+    cpu = DecodeService(model, device="cpu")
+    for s in (svc, cpu):
+        s.register("a", plan, enc.stream, enc.final_states, emission_log=log)
+    assert svc.layout_for("a") == layout
+    kernel = (rd.walk_decode_symbol if layout == "symbol"
+              else rd.walk_decode_pointer)
+    rd.reset_counts()
+    launches = plain_calls = 0
+    for th, n_chunks in ((64, 1), (64, 3), (64, 8), (16, 8), (5, 9)):
+        parts = svc.decode_chunks("a", th, n_chunks)
+        t = svc.submit_stream("a", th, n_chunks)
+        plain = cpu.decode_chunks("a", th, n_chunks)
+        assert t.n_chunks == len(parts) == len(plain)
+        launches += 2 * t.n_chunks
+        plain_calls += t.n_chunks         # the CPU service's plain walks
+        for i, spec in enumerate(t.specs):
+            got = t.synchronize(i)
+            assert t._ready[i].query()
+            want = syms[spec.base:spec.base + spec.length]
+            assert (got.cpu().numpy() == want).all()
+            assert torch.equal(parts[i].cpu(), plain[i])
+        assert torch.equal(t.result(), svc.decode("a", th))
+        launches += 1
+        assert all(p.covered for p, _ in svc._chunked_plans("a", th,
+                                                            n_chunks))
+    assert kernel.launches == launches
+    assert kernel.plain_calls == plain_calls and kernel.fills == 0
+    compiles = svc.stats.compiles
+    svc.submit_stream("a", 64, 8).synchronize(7)
+    assert svc.stats.compiles == compiles
+
+
+@in_child
+def test_prefix_upload_on_the_card(cuda_device):
+    """A chunk decodes from a stream on the card that holds only its
+    ``words_end`` words, at lengths that are not a multiple of 8 (the
+    kernel's 16-byte ring copies clamp at the stream's end), equal to its
+    symbols and to the plain walk on the same prefix."""
+    import torch
+    from repro_torch.core.engine import (DecoderSession, DeviceStream,
+                                         chunk_walk_batch)
+    syms, model, enc, batch = _content(42, 40_000, 32, 11, 24)
+    sess = DecoderSession(model)
+    cpu = DecoderSession(model, device="cpu")
+    specs = chunk_walk_batch(batch, len(syms), 8)
+    ends = [s.words_end for s in specs]
+    assert any(e % 8 for e in ends), ends
+    for spec in specs:
+        for n in sorted({spec.words_end,
+                         min(spec.words_end + 3, enc.n_words)}):
+            host = np.asarray(enc.stream[:n], np.uint16)
+            streams = [DeviceStream(
+                words=torch.as_tensor(host.view(np.int16), device=d),
+                host=host, n_words=n, bucket=n) for d in (cuda_device, "cpu")]
+            out = sess.execute(sess.prepare(spec.batch, streams[0],
+                                            spec.length))
+            ref = cpu.execute(cpu.prepare(spec.batch, streams[1],
+                                          spec.length))
+            assert torch.equal(out.cpu(), ref)
+            assert (ref.numpy() ==
+                    syms[spec.base:spec.base + spec.length]).all()

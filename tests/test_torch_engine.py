@@ -189,7 +189,10 @@ def test_session_device_and_impl_rules():
     tm = _port_model(jm)
     sess = DecoderSession(tm, device="cpu")
     assert sess.impl == "torch"
-    with pytest.raises(ValueError):
+    with pytest.raises(AttributeError):
+        sess.impl = "cuda"                    # the device fixes it
+    assert DecoderSession(tm, device="cpu", impl="torch").impl == "torch"
+    with pytest.raises(ValueError, match="fixes the impl"):
         DecoderSession(tm, device="cpu", impl="cuda")
     if torch.cuda.is_available():
         assert DecoderSession(tm).impl == "cuda"

@@ -2,10 +2,11 @@
 
 The port keeps its own copy of every jax-free module it needs (rans,
 interleaved, heuristic, recoil, bitio, metadata, conventional, container,
-adaptive)
-and re-implements the host encoder.  These tests feed the same seeded
-inputs to both packages and require equal arrays and equal bytes, and
-parse the frozen golden containers with the port.
+adaptive; the runtime's trace, registry, profiler and faultinject) and
+re-implements the host encoder.  These tests feed the same seeded inputs
+to both packages and require equal arrays and equal bytes, parse the
+frozen golden containers with the port, and hold the runtime copies' source
+text equal to the originals'.
 
 Each test runs in a child pytest process (``test_torch_isolation.in_child``),
 and the port is imported inside the tests, so the test worker itself never
@@ -231,3 +232,29 @@ def test_adaptive_equals_reference(ways, n_bits, family):
     with pytest.raises(ValueError, match="exclusive CDFs"):
         convert.context_model_from_arrays(jcm.f, jcm.F[:, :-1], jcm.ctx,
                                           n_bits, ways)
+
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+def _source(package, module):
+    with open(os.path.join(SRC, package, *module.split("/"))) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("module", [
+    "runtime/observability/trace.py", "runtime/observability/registry.py",
+    "runtime/observability/profiler.py", "runtime/faultinject.py"])
+@in_child
+def test_copied_runtime_sources_equal_reference(module):
+    """The jax-free runtime modules are copies: their text equals the
+    reference's, apart from docstring references to the package name and,
+    in ``faultinject.py``, the body of ``drop_last_word``, which reads the
+    port's int16 resident words (held by tests/test_torch_reliability.py)."""
+    ref = _source("repro", module).replace("repro.runtime.",
+                                           "repro_torch.runtime.")
+    port = _source("repro_torch", module)
+    if module.endswith("faultinject.py"):
+        cut = "def drop_last_word(stream):"
+        ref, port = ref[:ref.index(cut)], port[:port.index(cut)]
+    assert port == ref

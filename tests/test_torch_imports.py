@@ -47,6 +47,8 @@ def test_serve_imports_with_jax_blocked():
             "import repro_torch.runtime.serve, repro_torch.core.convert\n"
             "import repro_torch.kernels.rans_decode\n"
             "import repro_torch.core.encode, repro_torch.kernels.rans_encode\n"
+            "import repro_torch.runtime.observability\n"
+            "import repro_torch.runtime.faultinject\n"
             "print('ok')")
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -2,9 +2,10 @@
 ``DecodeService(impl="jnp")``.
 
 Both services register the same contents (with and without an emission
-log), serve them at several thread counts and through a fused
-``submit``/``flush`` group that mixes layouts, and must return equal
-symbols and equal plan, fusion and layout counters.
+log), serve them at several thread counts, through a fused
+``submit``/``flush`` group that mixes layouts and through the group backend
+(``dispatch_group``/``prepare_group``), and must return equal symbols and
+equal plan, fusion and layout counters.
 
 Each test runs in a child pytest process (``test_torch_isolation.in_child``),
 and the port is imported inside the tests, so the test worker itself never
@@ -19,6 +20,7 @@ from repro.core import recoil as j_recoil
 from repro.core.rans import RansParams as JParams, StaticModel as JModel
 from repro.core.vectorized import encode_interleaved_fast as j_encode
 from repro.runtime.serve import DecodeService as JService
+from repro.runtime.serve import DecodeTicket as JTicket
 
 COUNTERS = ("compiles", "cache_hits", "decodes", "plan_hits", "plan_misses",
             "coalesced_requests", "fused_dispatches", "flushes",
@@ -204,3 +206,70 @@ def test_ingest_extend_and_batch_match_reference():
         tsvc.extend("zz", delta)
     with pytest.raises(ValueError, match="alphabet"):
         tsvc.ingest("bad", np.array([1, 2, 999]), 2)
+
+
+@in_child
+def test_dispatch_group_and_prepare_group_match_reference():
+    """The group backend: ``dispatch_group`` fuses a mixed group into one
+    launch with outputs and counters equal to the reference's, arrival
+    order aside (a permutation of the group reuses its fused plan), and
+    ``prepare_group`` builds the same plan without counting a dispatch."""
+    from repro_torch.runtime.serve import DecodeTicket
+    payloads, jsvc, tsvc = _setup()
+    reqs = [("c0", 8), ("c2", 16), ("c1", 4), ("c0", 3), ("c2", 1)]
+    for group in (reqs, reqs[::-1]):
+        t_tickets = [DecodeTicket(tsvc) for _ in group]
+        j_tickets = [JTicket(jsvc) for _ in group]
+        tsvc.dispatch_group(group, t_tickets)
+        jsvc.dispatch_group(group, j_tickets)
+        for (name, _), tt, jt in zip(group, t_tickets, j_tickets):
+            t_out = tt.result().numpy()
+            np.testing.assert_array_equal(t_out, np.asarray(jt.result()))
+            np.testing.assert_array_equal(t_out, payloads[name])
+        assert _counters(tsvc) == _counters(jsvc)
+    assert tsvc.stats.fused_dispatches == 2 and len(tsvc._fused_plans) == 1
+    before = _counters(tsvc)
+    plan = tsvc.prepare_group(reqs)
+    jplan = jsvc.prepare_group(reqs)
+    assert _counters(tsvc)["fused_dispatches"] == before["fused_dispatches"]
+    assert _counters(tsvc) == _counters(jsvc)
+    (fused, _, _), = tsvc._fused_plans.values()
+    assert plan is fused and plan.n_symbols == jplan.n_symbols
+    assert tsvc.session.is_compiled(plan)
+    single = tsvc.prepare_group([("c1", 4)])
+    assert single is tsvc.prepare_request("c1", 4)
+    jsvc.prepare_group([("c1", 4)])
+    jsvc.prepare_request("c1", 4)
+    assert _counters(tsvc) == _counters(jsvc)
+
+
+@in_child
+def test_content_snapshot_and_evict_prepared():
+    """``content_snapshot`` pairs the generation with its content;
+    ``evict_prepared`` drops one pair's memos (and says so like the
+    reference), and the next request re-derives bit-exactly."""
+    payloads, jsvc, tsvc = _setup()
+    gen, content = tsvc.content_snapshot("c1")
+    assert gen == jsvc.content_snapshot("c1")[0] == 1
+    assert content is tsvc.content("c1")
+    with pytest.raises(KeyError):
+        tsvc.content_snapshot("missing")
+    c = tsvc.content("c1")
+    tsvc.register("c1", c.plan, c.stream.host, c.final_states)
+    jc = jsvc.content("c1")
+    jsvc.register("c1", jc.plan, jc.stream.host, jc.final_states)
+    assert tsvc.content_snapshot("c1")[0] == \
+        jsvc.content_snapshot("c1")[0] == 2
+    for svc in (tsvc, jsvc):
+        svc.decode("c1", 8)
+        svc.decode("c1", 8)
+    assert tsvc.evict_prepared("c1", 8) is jsvc.evict_prepared("c1", 8) \
+        is True
+    assert tsvc.evict_prepared("c1", 8) is jsvc.evict_prepared("c1", 8) \
+        is False
+    misses = tsvc.stats.plan_misses
+    t_out = tsvc.decode("c1", 8).numpy()
+    np.testing.assert_array_equal(t_out, np.asarray(jsvc.decode("c1", 8)))
+    np.testing.assert_array_equal(t_out, payloads["c1"])
+    assert tsvc.stats.plan_misses == misses + 1   # re-derived, not a hit
+    assert _counters(tsvc) == _counters(jsvc)
