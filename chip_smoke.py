@@ -65,7 +65,23 @@ package — in five phases, each failing loudly with a non-zero exit:
                stream requests and profiler runs of both sessions.
                ``extend`` (9 MB + 1 MB) must equal the full ingest and the
                reference's extend points, and ``ingest_batch`` of three
-               contents the three single ingests.  Every decode must equal
+               contents the three single ingests.  The serving pipeline
+               (``start_pipeline``, max_batch 8), warmed over both assets
+               at 16, 128 and 2176 threads: 64 requests mixed over both
+               names, the thread counts and three deadline classes must
+               equal their assets and resolve no launcher, while its ingest
+               worker ingests 9 MB of expo; an extend by the last 1 MB with
+               decodes of that content in flight, each the old content or
+               the new, and a third 10 MB asset (seed 101), both equal to
+               the host reference; a decode right after each ingest ticket;
+               streams of 8 chunks through the broker; ``speculate`` ahead
+               of a new pair's first request (a memo hit, no launcher);
+               a ``broker.decode_worker`` crash the supervisor recovers, a
+               ``service.execute`` fault retried to success, a cancel
+               before dispatch; ``submitted == completed + cancelled``
+               and nonzero broker counts in ``metrics_text()``; the
+               ``warm()`` calls' groups, wall time and launches' device time
+               are printed.  Every decode must equal
                the input symbols, all four kernels must have launched, no
                plain version may have served, every single-content plan must
                be covered (no -1 fill) and the fused plan's coverage must be
@@ -85,7 +101,18 @@ package — in five phases, each failing loudly with a non-zero exit:
                time (medians).  At 2176 threads, the instrumentation's host
                cost: the warm ``decode`` and ``submit_stream`` on the main
                service (``observe=True``) and on one with ``observe=False``
-               serving the same content, interleaved (medians).  Then the warm ``ingest`` latency of
+               serving the same content, interleaved (medians).  The
+               pipeline broker on expo at 16 and 2176 threads: a closed
+               loop of 200 requests, ``submit`` to ``result()``, p50 and
+               p99, interleaved with the sync path's ``decode``, first on
+               an idle ingest worker with the predictor off, then with it
+               on, then while the ingest worker ingests a 10 MB asset back
+               to back (with the broker's overlap ratio and wait/service
+               summaries, the groups, wall time and launches' device time
+               of the ``warm()`` before each loop, and the predictor's
+               units during it); and ``submit_stream`` in 8 chunks
+               through the broker and direct, host time to chunk 0 and to
+               the last chunk (medians).  Then the warm ``ingest`` latency of
                each 10 MB asset and the ``extend`` latency of the 1 MB delta
                (host clock around the call and a synchronize, median of 5),
                and each ingest kernel's CUDA-event device time at the main
@@ -110,6 +137,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -151,6 +179,9 @@ CHUNK_COUNTS = (1, 3, 8)
 STREAM_CHUNKS = 8
 STREAM_THREADS = (16, 2176)
 OBSERVE_THREADS = 2176  # the instrumentation's host cost weighs most here
+# The pipeline broker's closed loop: requests, each submitted once the one
+# before has returned, interleaved with the sync path's decode.
+BROKER_REPS = 200
 # The ingest path's assets: the first 9 MB of one asset is ingested and then
 # extended by the last 1 MB.
 EXTEND_AT = 9 * MB
@@ -1006,6 +1037,14 @@ def phase_main(dev, rd, re_):
             fail(f"batch-ingested {name} != input symbols")
     log("[main] ingest_batch of 3 contents = 3 single ingests; decodes "
         "bit-exactly")
+    stats = svc.stats.snapshot()
+    if stats["fused_dispatches"] != 2 or stats["pointer_plans"] < 4:
+        fail("the mixed group did not fuse into one pointer-layout dispatch "
+             "through submit/flush and one through dispatch_group")
+    if (stats["ingests"], stats["extends"]) != (5, 1):
+        fail(f"service counted {stats['ingests']} ingests and "
+             f"{stats['extends']} extends, expected 5 and 1")
+    _check_pipeline(svc, want, raw, model, faults, head_plan, full, points)
     torch.cuda.synchronize()
 
     launches = {"walk_pointer": rd.walk_decode_pointer.launches,
@@ -1016,17 +1055,10 @@ def phase_main(dev, rd, re_):
              + rd.walk_decode_symbol.plain_calls
              + re_.encode_scan.plain_calls + re_.plan_splits.plain_calls)
     fills = rd.walk_decode_pointer.fills + rd.walk_decode_symbol.fills
-    stats = svc.stats.snapshot()
     log(f"[main] layouts {layouts}; launches {launches}; plain versions "
-        f"{plain}; output fills {fills}; service {stats}")
+        f"{plain}; output fills {fills}; service {svc.stats.snapshot()}")
     if min(launches.values()) == 0 or plain != 0:
         fail("the main path did not run on all four kernels alone")
-    if stats["fused_dispatches"] != 2 or stats["pointer_plans"] < 4:
-        fail("the mixed group did not fuse into one pointer-layout dispatch "
-             "through submit/flush and one through dispatch_group")
-    if (stats["ingests"], stats["extends"]) != (5, 1):
-        fail(f"service counted {stats['ingests']} ingests and "
-             f"{stats['extends']} extends, expected 5 and 1")
     # Warm end-to-end request latency (host clock around decode + sync).
     for name in assets:
         for th in THREADS:
@@ -1043,6 +1075,237 @@ def phase_main(dev, rd, re_):
                 f"median {med:.3f} ms of {LATENCY_REPS}, "
                 f"{len(assets[name]) / med / 1e3:.1f} MB/s")
     return svc, assets, enc, launches
+
+
+def _expo(seed: int) -> np.ndarray:
+    """A 10 MB asset of expo's distribution (rand_exponential(100)) from
+    another seed, as the file's bytes."""
+    rng = np.random.default_rng(seed)
+    return np.minimum(rng.exponential(scale=2550.0 / 100, size=10 * MB),
+                      255).astype(np.uint8)
+
+
+def _metric_values(svc, prefix: str) -> dict:
+    """``metrics_text()``'s samples whose name starts with ``prefix``."""
+    return {k: float(v) for k, v in (
+        line.rsplit(" ", 1) for line in svc.metrics_text().splitlines()
+        if line.startswith(prefix))}
+
+
+def _check_pipeline(svc, want, raw, model, faults, head_plan, full,
+                    points) -> None:
+    """The serving pipeline at full width on phase 4's service: the broker
+    (``start_pipeline``, max_batch 8) warmed over both assets at THREADS;
+    64 requests mixed over both names, the three thread counts and the
+    three deadline classes, each equal to its asset, resolving no launcher,
+    while the ingest worker takes the first 9 MB of expo; then an extend
+    by the last 1 MB with decodes of that content in flight (each equal to
+    the old content or the new, never a mix) and a third 10 MB asset, both
+    equal to the host reference; decodes right after each ingest ticket;
+    streams of 8 chunks through the broker; speculation ahead of a request;
+    the supervisor, retry and cancel paths; the counters' identity and
+    ``metrics_text()``.  Reads only the broker's and tickets' public
+    surface."""
+    from repro_torch.core import recoil
+    from repro_torch.core.vectorized import (encode_interleaved_fast,
+                                             words_by_symbol_host)
+    from repro_torch.runtime.faultinject import FaultInjected
+    from repro_torch.runtime.pipeline import ControllerConfig, TicketCancelled
+    names = ["expo", "zipf"]
+    wait = 120.0                          # every result() has a timeout
+    b = svc.start_pipeline(config=ControllerConfig(max_batch=8))
+    with _TimeLaunches(svc.session) as warm_launches:
+        t = time.perf_counter()
+        b.warm(names, THREADS)
+        # warm() enumerates the uniform groups of its first name only, as
+        # the reference's does; a partial flush of a lane holding only zipf
+        # pads to a uniform zipf group, so zipf's uniform groups are warmed
+        # too.
+        b.warm(["zipf"], THREADS)
+        warm_wall = (time.perf_counter() - t) * 1e3
+    compiles = svc.stats.compiles
+
+    rng = np.random.default_rng(7)
+    head = b.submit_ingest("b_grown", raw["expo"][:EXTEND_AT], PLAN_THREADS)
+    classes = ("interactive", "standard", "bulk")
+    traffic = [(names[rng.integers(2)], THREADS[rng.integers(3)])
+               for _ in range(64)]
+    tickets = [svc.submit(n, th, deadline=classes[i % 3])
+               for i, (n, th) in enumerate(traffic)]
+    for (name, th), t in zip(traffic, tickets):
+        if not torch.equal(t.result(timeout=wait), want[name]):
+            fail(f"broker {name} at {th} threads != input symbols")
+    b.drain(timeout=wait)
+    if svc.stats.compiles != compiles:
+        fail(f"broker traffic after warm resolved "
+             f"{svc.stats.compiles - compiles} launchers")
+    if not _same_plan(head.result(timeout=wait), head_plan):
+        fail("the broker's 9 MB ingest differs from the service's")
+    old, new = want["expo"][:EXTEND_AT], want["expo"]
+    if not torch.equal(svc.submit("b_grown", PLAN_THREADS).result(
+            timeout=wait), old):
+        fail("a decode after the 9 MB ingest ticket != its symbols")
+    snap = b.snapshot()
+    log(f"[main] pipeline: 64 broker requests (both assets, {THREADS} "
+        f"threads, 3 deadline classes) equal their assets; 0 launchers "
+        f"resolved after warm; 9 MB ingest by the ingest worker = the "
+        f"service's plan; groups {snap['dispatch_groups']}, deadline "
+        f"{snap['deadline']}; warm(): {len(warm_launches.ms)} groups, "
+        f"wall {warm_wall:.4f} ms, device {sum(warm_launches.ms):.4f} ms")
+
+    # The extend with decodes of its content in flight, and a third asset.
+    expo2 = _expo(101)
+    ext = b.submit_extend("b_grown", raw["expo"][EXTEND_AT:])
+    racing = [(th, svc.submit("b_grown", th)) for th in THREADS
+              for _ in range(4)]
+    fresh = b.submit_ingest("expo2", expo2, PLAN_THREADS)
+    seen = {"old": 0, "new": 0}
+    for th, t in racing:
+        out = t.result(timeout=wait)
+        if torch.equal(out, new):
+            seen["new"] += 1
+        elif torch.equal(out, old):
+            seen["old"] += 1
+        else:
+            fail(f"a decode at {th} threads during the extend is neither "
+                 "the old content nor the new")
+    grown = ext.result(timeout=wait)
+    g = svc.content("b_grown")
+    if not (g.stream.n_words == full.n_words
+            and torch.equal(g.stream.words, full.stream.words)
+            and torch.equal(g.stream.by_symbol, full.stream.by_symbol)
+            and np.array_equal(g.final_states, full.final_states)
+            and len(grown.points) == len(points)
+            and all(p.offset == q and np.array_equal(p.k, k)
+                    and np.array_equal(p.y, y)
+                    for p, (q, k, y) in zip(grown.points, points))):
+        fail("the broker's extend differs from the full ingest or the "
+             "reference's points")
+    for th in THREADS:
+        if not torch.equal(svc.submit("b_grown", th).result(timeout=wait),
+                           new):
+            fail(f"a decode after the extend ticket at {th} threads != "
+                 "its symbols")
+    fresh_plan = fresh.result(timeout=wait)
+    e2 = encode_interleaved_fast(expo2.astype(np.int64), model)
+    c2 = svc.content("expo2")
+    if not (c2.stream.n_words == e2.n_words
+            and np.array_equal(_host_words(c2.stream.words, e2.n_words),
+                               e2.stream)
+            and np.array_equal(c2.final_states, e2.final_states)
+            and _same_plan(fresh_plan, recoil.plan_splits(e2, PLAN_THREADS))
+            and np.array_equal(
+                _host_words(c2.stream.by_symbol, e2.n_symbols),
+                words_by_symbol_host(e2.stream, e2.k_of_word,
+                                     e2.n_symbols).astype(np.uint16))):
+        fail("the broker's ingest of a third asset differs from the host "
+             "reference")
+    want2 = torch.as_tensor(expo2.astype(np.int32), device=new.device)
+    for th in THREADS:
+        if not torch.equal(svc.submit("expo2", th).result(timeout=wait),
+                           want2):
+            fail(f"a decode after the third asset's ingest ticket at {th} "
+                 "threads != its symbols")
+    log(f"[main] pipeline: extend 9 MB + 1 MB by the ingest worker = the "
+        f"full ingest and the reference's points; {len(racing)} decodes in "
+        f"flight during it: {seen['old']} old, {seen['new']} new, none "
+        f"torn; a third 10 MB asset (seed 101) = the host reference (words, "
+        f"final states, {len(fresh_plan.points)} points, permutation); "
+        f"decodes after each ticket exact")
+
+    # Streams through the broker's decode worker.
+    for name in names:
+        for th in STREAM_THREADS:
+            st = svc.submit_stream(name, th, STREAM_CHUNKS)
+            for i in range(STREAM_CHUNKS):
+                got = st.synchronize(i, timeout=wait)
+                spec = st.specs[i]
+                if not torch.equal(
+                        got, want[name][spec.base:spec.base + spec.length]):
+                    fail(f"broker stream {name} at {th} threads: chunk {i} "
+                         "!= its symbols")
+
+    # Speculation: a pair declared hot is derived and its launchers
+    # resolved ahead of its first request, which is then a memo hit.  The
+    # ingest worker's idle gaps may run some or all of the units before
+    # speculate() does, so the units are the predictor's own counts.
+    pred0 = b.snapshot()["predictive"]
+    b.anticipate("expo", 512, weight=8.0)
+    units = b.speculate()
+    pred1 = b.snapshot()["predictive"]
+    prethins = pred1["prethins"] - pred0["prethins"]
+    probes = pred1["warm_probes"] - pred0["warm_probes"]
+    st0, reg0 = svc.stats, b.registry.snapshot()
+    if not torch.equal(svc.submit("expo", 512).result(timeout=wait),
+                       want["expo"]):
+        fail("the speculated request != its symbols")
+    st1 = svc.stats
+    b.registry.container_for_threads("expo", 512)
+    if (prethins == 0 or probes == 0 or st1.compiles != st0.compiles
+            or st1.plan_misses != st0.plan_misses
+            or st1.plan_hits != st0.plan_hits + 1
+            or b.registry.snapshot()["speculative_hits"]
+            <= reg0["speculative_hits"]):
+        fail(f"speculation ({prethins} prethins, {probes} warm probes) did "
+             "not make the first request a memo hit that resolves no "
+             "launcher")
+
+    # Faults: a worker crash, a transient execute fault, a cancel.
+    fired = sum(faults.fires.values())
+    faults.arm("broker.decode_worker")
+    try:
+        svc.submit("expo", 16).result(timeout=wait)
+    except FaultInjected:
+        pass
+    else:
+        fail("the broker.decode_worker fault did not reach its ticket")
+    b.drain(timeout=wait)
+    if b.snapshot()["worker_restarts"] != 1 or not torch.equal(
+            svc.submit("expo", 16).result(timeout=wait), want["expo"]):
+        fail("the supervisor did not restart the decode worker")
+    faults.arm("service.execute", times=1)
+    if not torch.equal(svc.submit("zipf", 128, retries=2).result(
+            timeout=wait), want["zipf"]):
+        fail("the retried request != its symbols")
+    faults.arm("broker.decode_worker", mode="delay", delay_s=0.5)
+    busy = svc.submit("expo", 128)
+    deadline = time.perf_counter() + wait
+    while b.snapshot()["queue_depth"] and time.perf_counter() < deadline:
+        time.sleep(0.001)                 # the worker popped it, and waits
+    queued = svc.submit("expo", 128)
+    if not queued.cancel():
+        fail("a queued request could not be cancelled")
+    try:
+        queued.result(timeout=wait)
+    except TicketCancelled:
+        pass
+    else:
+        fail("a cancelled request did not raise TicketCancelled")
+    if not torch.equal(busy.result(timeout=wait), want["expo"]):
+        fail("the request ahead of the cancelled one != its symbols")
+    b.drain(timeout=wait)
+    snap = b.snapshot()
+    shown = _metric_values(svc, "recoil_broker_")
+    log(f"[main] pipeline: broker streams of {STREAM_CHUNKS} chunks at "
+        f"{STREAM_THREADS} threads equal their slices; speculation ran "
+        f"{prethins} prethins and {probes} warm probes ({units} units in "
+        f"speculate(), the rest in idle gaps), the first request hit the "
+        f"memo and resolved 0 launchers; faults fired {sum(faults.fires.values()) - fired}: "
+        f"worker_restarts {snap['worker_restarts']}, retries "
+        f"{snap['retries']}, dispatch_errors {snap['dispatch_errors']}, "
+        f"cancelled {snap['cancelled']}; submitted {snap['submitted']} = "
+        f"completed {snap['completed']} + cancelled {snap['cancelled']}")
+    if (snap["submitted"] != snap["completed"] + snap["cancelled"]
+            or snap["dispatch_errors"] != 1 or snap["cancelled"] != 1
+            or shown.get("recoil_broker_retries_total", 0) < 1):
+        fail(f"broker counters {snap}")
+    if not all(shown.get(f"recoil_broker_{k}_total", 0) > 0 for k in (
+            "submitted", "completed", "dispatch_groups", "ingest_dispatches",
+            "extend_events", "stream_dispatches", "worker_restarts")):
+        fail(f"metrics_text() lacks broker counts: {shown}")
+    svc.stop_pipeline()
+    if svc.broker is not None:
+        fail("stop_pipeline() left a broker attached")
 
 
 def _check_streams(svc, assets, want, enc, dev, rd) -> None:
@@ -1372,6 +1635,38 @@ class _MarkLaunches:
         del self.session.execute
 
 
+class _TimeLaunches:
+    """Inside the block, brackets each launch that the calling thread makes
+    through ``session.execute`` with two timing events on its current
+    stream; on exit, ``ms`` holds each launch's device time (start event to
+    end event).  Launches from other threads pass through unmarked.  The
+    wrapper is an instance attribute, removed on exit."""
+
+    def __init__(self, session):
+        self.session, self.ms, self._pairs = session, [], []
+
+    def __enter__(self):
+        execute, me = self.session.execute, threading.get_ident()
+
+        def bracketed(plan):
+            if threading.get_ident() != me:
+                return execute(plan)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = execute(plan)
+            end.record()
+            self._pairs.append((start, end))
+            return out
+        self.session.execute = bracketed
+        return self
+
+    def __exit__(self, *exc):
+        del self.session.execute
+        torch.cuda.synchronize()
+        self.ms = [a.elapsed_time(b) for a, b in self._pairs]
+
+
 def phase_stream_times(svc, assets, smi) -> None:
     """Streaming decode at 16 and 2176 threads in STREAM_CHUNKS chunks:
     the device time from the first chunk's launch to the end of chunk 0
@@ -1474,6 +1769,128 @@ def phase_observe_cost(svc, assets, smi) -> None:
             f"chunks, host enqueue {on['enqueue']:.4f} vs "
             f"{off['enqueue']:.4f} ms, to synchronize {on['stream']:.4f} vs "
             f"{off['stream']:.4f} ms; card: {smi}")
+
+
+def phase_broker_times(svc, assets, smi) -> None:
+    """The pipeline broker's end-to-end latency on expo at STREAM_THREADS:
+    a closed loop of BROKER_REPS requests, host clock from ``submit`` until
+    ``result()`` returns (the broker has waited for the launch's readiness
+    event), each followed by the sync path's ``decode`` and a wait on an
+    event recorded after it; first on an idle ingest worker, then while it
+    ingests a 10 MB asset back to back, with the broker's overlap ratio and
+    its wait/service summaries.  An idle loop with the predictor off comes
+    first.  Each loop's line also gives what ``warm()`` cost before it
+    (groups launched, host wall time, and the sum of its launches' device
+    times) and the predictor's idle-gap units during the loop (prethins,
+    warm probes, and warm launches, which share the stream with the
+    traffic).
+    Then ``submit_stream`` in STREAM_CHUNKS
+    chunks through the broker and on a service without one serving the
+    same content (interleaved): host time to chunk 0 and to the last
+    chunk, medians of TIME_REPS."""
+    from repro_torch.runtime.pipeline import ControllerConfig
+    from repro_torch.runtime.serve import DecodeService
+    name = "expo"
+    want = torch.as_tensor(assets[name].astype(np.int32), device="cuda")
+    load = _expo(102)
+    pct = lambda xs, p: float(np.percentile(xs, p))         # noqa: E731
+
+    def sync_decode(th):
+        svc.decode(name, th)
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+
+    variants = (("idle, predictor off", False, False), ("idle", True, False),
+                ("under back-to-back 10 MB ingests", True, True))
+    for th in STREAM_THREADS:
+        for label, predictive, loaded in variants:
+            b = svc.start_pipeline(config=ControllerConfig(max_batch=8),
+                                   predictive=predictive)
+            with _TimeLaunches(svc.session) as warm_launches:
+                t = time.perf_counter()
+                b.warm([name], [th])
+                warm_wall = (time.perf_counter() - t) * 1e3
+            pred0 = b.snapshot()["predictive"]
+            stop, done = threading.Event(), []
+
+            def loader():
+                while not stop.is_set():
+                    b.submit_ingest("t_load", load, PLAN_THREADS).result(
+                        timeout=120)
+                    done.append(1)
+            worker = threading.Thread(target=loader) if loaded else None
+            if worker is not None:
+                worker.start()
+                while not done and worker.is_alive():
+                    time.sleep(0.001)     # the first ingest has finished
+            broker_ms, sync_ms = [], []
+            for i in range(BROKER_REPS):
+                t = time.perf_counter()
+                out = svc.submit(name, th).result(timeout=120)
+                broker_ms.append((time.perf_counter() - t) * 1e3)
+                if i % 50 == 0 and not torch.equal(out, want):
+                    fail(f"broker {name} at {th} threads != input symbols")
+                t = time.perf_counter()
+                sync_decode(th)
+                sync_ms.append((time.perf_counter() - t) * 1e3)
+            stop.set()
+            if worker is not None:
+                worker.join(timeout=300)
+            b.drain(timeout=120)
+            snap = b.snapshot()
+            svc.stop_pipeline()
+            pred = ("off" if pred0 is None else ", ".join(
+                f"{snap['predictive'][k] - pred0[k]} {k}"
+                for k in ("prethins", "warm_probes", "warm_compiles")))
+            w, s = snap["wait"], snap["service"]
+            log(f"[times] broker {name} at {th} threads, {label}, "
+                f"closed loop of {BROKER_REPS}: submit to result() p50 "
+                f"{pct(broker_ms, 50):.4f} ms, p99 {pct(broker_ms, 99):.4f} "
+                f"ms; sync decode to its event, interleaved: p50 "
+                f"{pct(sync_ms, 50):.4f} ms, p99 {pct(sync_ms, 99):.4f} ms; "
+                f"broker wait p50 {w['p50_ms']:.4f} / p99 {w['p99_ms']:.4f} "
+                f"ms, service p50 {s['p50_ms']:.4f} / p99 {s['p99_ms']:.4f} "
+                f"ms; overlap ratio {snap['overlap']['overlap_ratio']:.4f}; "
+                f"ingests done {len(done)}, groups "
+                f"{snap['dispatch_groups']}; warm() before it: "
+                f"{len(warm_launches.ms)} groups, wall {warm_wall:.4f} ms, "
+                f"device {sum(warm_launches.ms):.4f} ms; predictor units "
+                f"during the loop: {pred}; card: {smi}")
+
+    direct = DecodeService(svc.session.model, device=svc.session.device)
+    c = svc.content(name)
+    direct.register(name, c.plan, c.stream, c.final_states)
+    b = svc.start_pipeline(config=ControllerConfig(max_batch=8))
+    med = statistics.median
+    for th in STREAM_THREADS:
+        times = {"broker": ([], []), "direct": ([], [])}
+        for rep in range(TIME_REPS + 1):
+            for path, submit in (("broker", b.submit_stream),
+                                 ("direct", direct.submit_stream)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                st = submit(name, th, STREAM_CHUNKS)
+                st.synchronize(0, timeout=120)
+                first = time.perf_counter() - t
+                last_chunk = st.synchronize(STREAM_CHUNKS - 1, timeout=120)
+                last = time.perf_counter() - t
+                if rep == 0:              # warm-up, checked, not timed
+                    spec = st.specs[-1]
+                    if not torch.equal(last_chunk, want[
+                            spec.base:spec.base + spec.length]):
+                        fail(f"{path} stream's last chunk != its symbols")
+                    continue
+                times[path][0].append(first * 1e3)
+                times[path][1].append(last * 1e3)
+        (bf, bl), (df, dl) = times["broker"], times["direct"]
+        log(f"[times] stream {name} at {th} threads in {STREAM_CHUNKS} "
+            f"chunks, host clock from submit_stream to chunk 0 / the last "
+            f"chunk ready (medians of {TIME_REPS}, interleaved): through "
+            f"the broker {med(bf):.4f} / {med(bl):.4f} ms; direct "
+            f"{med(df):.4f} / {med(dl):.4f} ms; card: {smi}")
+    b.drain(timeout=120)
+    svc.stop_pipeline()
 
 
 def _sm_clock_hz() -> float:
@@ -1712,6 +2129,7 @@ def main() -> int:
     rows = phase_times(svc, assets, enc, launches, errs, smi)
     phase_stream_times(svc, assets, smi)
     phase_observe_cost(svc, assets, smi)
+    phase_broker_times(svc, assets, smi)
     rows += phase_ingest_times(svc, assets, launches, errs, smi, sass)
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -10,8 +10,10 @@ One :class:`Observability` object per :class:`~repro_torch.runtime.serve
   * :class:`~repro_torch.runtime.observability.registry.MetricsRegistry` —
     the one scrape surface: native instruments (request-latency histogram)
     plus pull collectors that absorb ``ServiceStats``, the engine's
-    launcher and upload counts, the profiler, the tracer and the fault
-    injector;
+    launcher and upload counts, the profiler, the tracer, the fault
+    injector and, while a pipeline runs, the broker's depths and counters,
+    the capability registry, the prethinner, the controller's EMAs and the
+    per-class deadline accounting;
   * :class:`~repro_torch.runtime.observability.profiler.ExecProfiler` —
     per-plan-key launcher-resolution/run timing shared by the decode and
     encode sessions.
@@ -32,11 +34,13 @@ port does not have (it never emits them as constant zeros):
     policy, and the port has none.
 
 Every other name keeps the reference's type and labels.  The broker
-collector stays and yields nothing until a pipeline broker is attached.
+collector is the reference's: it yields every ``recoil_broker_*`` name (and
+the controller, registry, heat, predictor and deadline names) while a
+pipeline broker is attached, and nothing otherwise.
 
 Everything here is duck-typed over the service/broker surfaces — the
-package imports nothing from ``runtime.serve`` (it imports *us*), keeping
-the layering acyclic.
+package imports nothing from ``runtime.serve`` or ``runtime.pipeline``
+(they import *us*), keeping the layering acyclic.
 """
 
 from __future__ import annotations

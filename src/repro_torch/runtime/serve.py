@@ -35,6 +35,15 @@ observability.Observability` (per-ticket traces, the launcher profiler of
 both sessions, ``metrics``/``metrics_text``) and a fault injector
 (``faults=``, :mod:`repro_torch.runtime.faultinject`) whose six service
 fault points are no-ops unless armed.
+
+``start_pipeline()`` upgrades the service to the async serving pipeline
+(:mod:`repro_torch.runtime.pipeline`): a broker with capability lanes,
+adaptive microbatching, admission control, and an ingest worker whose host
+work overlaps decode dispatch.  With a broker attached the service is a
+thin façade — ``submit``/``submit_stream``/``flush`` route to the broker's
+queues and worker threads; ``decode``/``ingest``/``register`` remain
+callable from any thread (the service lock and the session locks guard the
+shared caches).
 """
 
 from __future__ import annotations
@@ -95,19 +104,26 @@ class DecodeTicket:
     :data:`NULL_TRACE` for tickets made outside ``submit`` and disabled
     tracing, so dispatch instrumentation never branches on ticket
     provenance.
+
+    ``ready`` is the readiness event the dispatch recorded on the current
+    stream right after the launch that produced ``out`` (one event shared
+    by a fused group's tickets; None on the CPU).  ``result()`` does not
+    wait for it; the pipeline broker does.
     """
 
-    __slots__ = ("_svc", "out", "err", "trace")
+    __slots__ = ("_svc", "out", "err", "trace", "ready")
 
     def __init__(self, svc: "DecodeService"):
         self._svc = svc
         self.out = None
         self.err = None
         self.trace = NULL_TRACE
+        self.ready = None
 
     def _fulfill(self, out=None, err=None) -> None:
-        """Dispatch completion hook; keep all result delivery going through
-        it."""
+        """Dispatch completion hook — the broker's ticket subclass overrides
+        this to also release cross-thread waiters and timestamp the
+        completion; keep all result delivery going through it."""
         self.out = out
         self.err = err
 
@@ -279,8 +295,10 @@ class DecodeService:
         self._streams = 0
         # Service lock: guards content/memos/pending/counters.  Reentrant
         # because register() flushes stale pending requests while already
-        # holding it.  Launches run outside it.
+        # holding it.  Launches run outside it, so the broker's ingest and
+        # decode workers contend only for the short host-prep sections.
         self._lock = threading.RLock()
+        self._broker = None   # attached by start_pipeline()
 
     def register(self, name: str, plan: RecoilPlan, stream, final_states,
                  *, model=None, emission_log=None) -> None:
@@ -522,9 +540,13 @@ class DecodeService:
     def submit_stream(self, name: str, n_threads: int,
                       n_chunks: int = 8) -> StreamTicket:
         """Chunked streaming decode returning a :class:`StreamTicket` that
-        yields per-chunk results as they complete.  The chunks are launched
-        inline — still pipelined, because each launch is queued
+        yields per-chunk results as they complete.  With a pipeline broker
+        attached the chunks are launched by the broker's decode worker;
+        otherwise inline — still pipelined, because each launch is queued
         asynchronously."""
+        broker = self._broker
+        if broker is not None:
+            return broker.submit_stream(name, n_threads, n_chunks)
         ticket = StreamTicket(self.stream_chunk_count(name, n_threads,
                                                       n_chunks))
         ticket.trace = self.obs.tracer.start(
@@ -565,33 +587,53 @@ class DecodeService:
     # Microbatched path
     # ------------------------------------------------------------------
 
-    def submit(self, name: str, n_threads: int) -> DecodeTicket:
+    def submit(self, name: str, n_threads: int, *, deadline=None,
+               retries: int = 0) -> DecodeTicket:
         """Queue a request for coalescing (see module docstring for the
-        flush policy)."""
-        with self._lock:
-            now = time.perf_counter()
-            if self._pending and \
-                    (now - self._pending_t0) * 1e3 > self.max_delay_ms:
-                self._flush_pending()
-            key = (name, n_threads)
-            batch, n = self._thinned_batch(name, n_threads)
-            ticket = DecodeTicket(self)
-            # Spans: admission = host prep at submit time (the thinning
-            # above); the wait until flush is "queue".
-            ticket.trace = self.obs.tracer.start(
-                "decode", name=name, t0=now, n_threads=n_threads,
-                path="sync")
-            ticket.trace.phase("admission")
-            if not self._pending:
-                self._pending_t0 = now
-            self._pending.append((ticket, key, batch, n))
-            if len(self._pending) >= self.microbatch:
-                self._flush_pending()
-            return ticket
+        flush policy).  With a pipeline broker attached
+        (:meth:`start_pipeline`) the request is queued on the broker's
+        capability lanes instead and dispatched by its worker thread;
+        ``deadline`` (a class name or an explicit ms budget) then bounds
+        its queue wait and ``retries`` opts the ticket into bounded
+        transient-fault retry.  The sync path has no lane scheduler or
+        retry queue, so its flat ``max_delay_ms`` bound already caps the
+        wait and both are accepted but unused."""
+        broker = self._broker
+        if broker is None:
+            with self._lock:
+                # Re-check under the lock: a raced start_pipeline() flushed
+                # _pending while attaching, so queueing here now would
+                # strand the ticket — route to the broker instead.
+                broker = self._broker
+                if broker is None:
+                    now = time.perf_counter()
+                    if (self._pending and (now - self._pending_t0) * 1e3
+                            > self.max_delay_ms):
+                        self._flush_pending()
+                    key = (name, n_threads)
+                    batch, n = self._thinned_batch(name, n_threads)
+                    ticket = DecodeTicket(self)
+                    # Spans: admission = host prep at submit time (the
+                    # thinning above); the wait until flush is "queue".
+                    ticket.trace = self.obs.tracer.start(
+                        "decode", name=name, t0=now, n_threads=n_threads,
+                        path="sync")
+                    ticket.trace.phase("admission")
+                    if not self._pending:
+                        self._pending_t0 = now
+                    self._pending.append((ticket, key, batch, n))
+                    if len(self._pending) >= self.microbatch:
+                        self._flush_pending()
+                    return ticket
+        return broker.submit(name, n_threads, deadline=deadline,
+                             retries=retries)
 
     def _flush_pending(self) -> None:
-        """Dispatch the pending queue as one group; on error every ticket
-        of the group carries the exception."""
+        """Dispatch the sync-path pending queue as one group; on error
+        every ticket of the group carries the exception.  No broker
+        interaction — safe to call while holding the service lock (e.g.
+        from :meth:`register`'s stale-pending guard), where a broker
+        ``drain`` could deadlock against workers waiting on that lock."""
         with self._lock:
             reqs, self._pending = self._pending, []
         if not reqs:
@@ -609,8 +651,12 @@ class DecodeService:
             raise
 
     def flush(self) -> None:
-        """Dispatch all pending requests as one fused launch."""
+        """Dispatch all pending requests as one fused launch.  With a
+        broker attached this also drains the broker's queues."""
         self._flush_pending()
+        broker = self._broker   # local read: a concurrent stop_pipeline()
+        if broker is not None:  # may null the attribute between check/use
+            broker.drain()
 
     def dispatch_group(self, requests, tickets) -> None:
         """Group backend: dispatch ``requests = [(name, n_threads), ...]``
@@ -648,7 +694,8 @@ class DecodeService:
         except Exception as e:
             for ticket in tickets:
                 ticket._fulfill(err=e)
-                ticket.trace.finish("error", error=repr(e))
+                if not getattr(ticket, "_retry_pending", False):
+                    ticket.trace.finish("error", error=repr(e))
             raise
         tc = time.perf_counter()
         for ticket in tickets:
@@ -658,7 +705,12 @@ class DecodeService:
         except Exception as e:
             for ticket, _, _, _ in reqs:
                 ticket._fulfill(err=e)
-                ticket.trace.finish("error", error=repr(e))
+                # A broker ticket with retries left parks as retry-pending
+                # instead of completing; its trace stays open for the retry
+                # attempt (the broker records a "retry" event and the
+                # terminal pass finishes it).
+                if not getattr(ticket, "_retry_pending", False):
+                    ticket.trace.finish("error", error=repr(e))
             raise
 
     def prepare_group(self, requests) -> DecodePlan:
@@ -710,14 +762,17 @@ class DecodeService:
         return plan, sym_off
 
     def _dispatch(self, reqs) -> None:
-        """Plan under the service lock; launch outside it.
+        """Plan under the service lock; launch outside it, and record the
+        launch's readiness event (``DecodeTicket.ready``) right after it.
 
         Span marks: plan resolution closes "dispatch", the launch closes
-        "execute", fulfillment closes "delivery".  The path stays
-        asynchronous: the execute span is the host-side enqueue cost and
-        the caller's ``result()`` owns the device wait (a traced flush that
-        synchronized would charge instrumentation for a wait the untraced
-        path never does)."""
+        "execute", fulfillment closes "delivery".  On the broker path the
+        worker waits for the group's output anyway, so for traced groups
+        the wait moves here, inside the execute span.  The sync path stays
+        asynchronous: its execute span is the host-side enqueue cost and
+        the caller owns the device wait (a traced flush that synchronized
+        would charge instrumentation for a wait the untraced path never
+        does)."""
         with self._lock:
             self._flushes += 1
             plan, sym_off = self._group_plan(reqs)
@@ -727,22 +782,31 @@ class DecodeService:
             tr.phase("dispatch", tp)
         self.faults.fire("service.execute", group=len(reqs))
         out = self.session.execute(plan)
+        ready = _launched(out)
+        if (ready is not None and self._broker is not None
+                and any(tr.live for tr in traces)):
+            ready.synchronize()
         tx = time.perf_counter()
         for tr in traces:
             tr.phase("execute", tx, group=len(reqs))
-        # Per-ticket finish, right after the ticket's own fulfillment: each
-        # trace's span-sum then equals its own end-to-end latency.
+        # Per-ticket finish, right after the ticket's own fulfillment,
+        # stamped at the ticket's own completion time when it records one
+        # (the broker's tickets): each trace's span-sum then equals its own
+        # end-to-end latency.
         if sym_off is None:
             ticket = reqs[0][0]
+            ticket.ready = ready
             ticket._fulfill(out=out)
-            td = time.perf_counter()
+            td = getattr(ticket, "completed_at", None) or time.perf_counter()
             ticket.trace.phase("delivery", td)
             ticket.trace.finish("ok", td)
             return
         for (ticket, _, _, n), off in zip(reqs, sym_off):
+            ticket.ready = ready
             ticket._fulfill(out=out[off:off + n])
             if ticket.trace.live:
-                td = time.perf_counter()
+                td = getattr(ticket, "completed_at", None) \
+                    or time.perf_counter()
                 ticket.trace.phase("delivery", td)
                 ticket.trace.finish("ok", td)
 
@@ -769,6 +833,37 @@ class DecodeService:
             [perm_off[id(self._contents[key[0]].stream)]
              for _, key, _, _ in reqs])
         return self.session.prepare(fused, fused_ds, total), sym_off, total
+
+    # ------------------------------------------------------------------
+    # Async serving pipeline (runtime.pipeline)
+    # ------------------------------------------------------------------
+
+    def start_pipeline(self, **broker_kw):
+        """Attach a :class:`~repro_torch.runtime.pipeline.PipelineBroker`
+        and become its thin façade: ``submit``/``submit_stream``/``flush``
+        route through the broker's capability lanes and worker threads.
+        Returns the broker (also a context manager)."""
+        from .pipeline import PipelineBroker
+        with self._lock:
+            if self._broker is not None:
+                raise RuntimeError("pipeline already running; stop it first")
+            # Requests queued through the sync path before the upgrade must
+            # dispatch NOW: once the broker is attached, flush() routes to
+            # broker.drain() and would never touch them.
+            self._flush_pending()
+            self._broker = PipelineBroker(self, **broker_kw)
+        return self._broker
+
+    def stop_pipeline(self) -> None:
+        """Drain and detach the broker (no-op when none is attached)."""
+        with self._lock:
+            broker, self._broker = self._broker, None
+        if broker is not None:
+            broker.close()
+
+    @property
+    def broker(self):
+        return self._broker
 
     def metrics(self) -> dict:
         """The unified metrics snapshot (native instruments + every

@@ -750,3 +750,241 @@ def test_prefix_upload_on_the_card(cuda_device):
             assert torch.equal(out.cpu(), ref)
             assert (ref.numpy() ==
                     syms[spec.base:spec.base + spec.length]).all()
+
+
+# ---------------------------------------------------------------------------
+# The pipeline broker on the card
+# ---------------------------------------------------------------------------
+
+def _broker_service(seed, n, n_splits, layout, **kw):
+    """A service on the card holding one content on ``layout``: ingested on
+    the card (symbol), or encoded on the host and registered without its
+    emission log (pointer)."""
+    from repro_torch.core import recoil
+    from repro_torch.runtime.serve import DecodeService
+    syms, model, enc, _ = _content(seed, n, 32, 11, n_splits)
+    svc = DecodeService(model, **kw)
+    if layout == "symbol":
+        svc.ingest("a", syms, n_splits)
+    else:
+        svc.register("a", recoil.plan_splits(enc, n_splits), enc.stream,
+                     enc.final_states)
+    assert svc.layout_for("a") == layout
+    return syms, model, svc
+
+
+@pytest.mark.parametrize("layout", ["symbol", "pointer"])
+@in_child
+def test_broker_round_trip_on_the_card(cuda_device, layout):
+    """Broker traffic on the card after ``warm``: every result (a device
+    tensor the broker has waited for) equals the symbols, the walk kernel
+    launched and no plain version served, the requests resolved no launcher
+    after ``warm``, and a stream through the broker equals the asset."""
+    import torch
+    from repro_torch.kernels.rans_decode import rans_decode as rd
+    from repro_torch.runtime.pipeline import ControllerConfig
+    syms, _, svc = _broker_service(51, 80_001, 64, layout)
+    want = torch.as_tensor(syms.astype(np.int32), device=cuda_device)
+    kernel = (rd.walk_decode_symbol if layout == "symbol"
+              else rd.walk_decode_pointer)
+    rd.reset_counts()
+    with svc.start_pipeline(config=ControllerConfig(max_batch=4),
+                            predictive=False) as b:
+        b.warm(["a"], [4, 16, 64])
+        compiles = svc.stats.compiles
+        tickets = [svc.submit("a", (4, 16, 64)[i % 3],
+                              deadline=("interactive", "standard",
+                                        "bulk")[i % 3]) for i in range(24)]
+        for t in tickets:
+            out = t.result(timeout=30)
+            assert out.device.type == "cuda"
+            assert t.ready is not None and t.ready.query()
+            assert torch.equal(out, want)
+        assert svc.stats.compiles == compiles
+        st = svc.submit_stream("a", 64, n_chunks=4)
+        parts = [st.synchronize(i, timeout=30) for i in range(st.n_chunks)]
+        assert torch.equal(torch.cat(parts), want)
+        b.drain(timeout=30)
+        snap = b.snapshot()
+    assert snap["completed"] == 25 and snap["dispatch_errors"] == 0
+    assert snap["stream_dispatches"] == 1
+    assert kernel.launches > 0 and kernel.plain_calls == 0
+
+
+@in_child
+def test_broker_ingest_worker_on_the_card(cuda_device):
+    """An ingest and an extend through the broker's ingest worker run both
+    ingest kernels (no plain version) and equal the CPU session's results;
+    a decode submitted right after each ticket resolves is exact."""
+    import torch
+    from repro_torch.core.encode import EncoderSession
+    from repro_torch.kernels.rans_encode import rans_encode as re_
+    syms, model, svc = _broker_service(52, 60_001, 64, "symbol")
+    cpu = EncoderSession(model, device="cpu")
+    re_.reset_counts()
+    with svc.start_pipeline() as b:
+        plan = b.submit_ingest("n", syms[:50_000], 64).result(timeout=30)
+        assert plan.n_symbols == 50_000
+        out = svc.submit("n", 16).result(timeout=30)
+        assert (out.cpu().numpy() == syms[:50_000]).all()
+        b.submit_extend("n", syms[50_000:]).result(timeout=30)
+        out = svc.submit("n", 64).result(timeout=30)
+        assert (out.cpu().numpy() == syms).all()
+        b.drain(timeout=30)
+    assert re_.encode_scan.launches == 2 and re_.plan_splits.launches == 2
+    assert re_.encode_scan.plain_calls == re_.plan_splits.plain_calls == 0
+    want = cpu.ingest(syms, 64)
+    got = svc.content("n")
+    assert torch.equal(got.stream.words.cpu(), want.stream.words)
+    assert torch.equal(got.stream.by_symbol.cpu(), want.stream.by_symbol)
+    assert np.array_equal(got.final_states, want.final_states)
+
+
+@in_child
+def test_broker_retries_an_execute_fault_on_the_card(cuda_device):
+    import torch
+    from repro_torch.runtime.faultinject import FaultInjector
+    inj = FaultInjector()
+    syms, _, svc = _broker_service(53, 40_001, 32, "pointer", faults=inj)
+    with svc.start_pipeline(retry_backoff_ms=1.0) as b:
+        inj.arm("service.execute", times=1)
+        out = svc.submit("a", 32, retries=2).result(timeout=30)
+        assert torch.equal(out.cpu(), torch.as_tensor(syms.astype(np.int32)))
+        b.drain(timeout=30)
+        snap = b.snapshot()
+        metrics = svc.metrics()
+    assert snap["retries"] == 1 and snap["dispatch_errors"] == 1
+    assert snap["completed"] == 1
+    assert metrics["recoil_broker_retries_total"]["values"][""] == 1
+
+
+@in_child
+def test_broker_waits_are_scoped_to_their_launch(cuda_device):
+    """The decode worker's wait is on the event recorded right after its
+    group's launch, not on the device: with ``observe=False`` (so the
+    dispatch itself does not wait), the group's dispatch lets the ingest
+    worker queue about a second of device work (a device sleep ahead of a
+    real ingest) on the same stream before the worker waits — and the
+    group completes while that later work is still running, its CUDA
+    events showing the sleep's length."""
+    import threading
+    import time
+    import torch
+    from repro_torch.runtime.pipeline import ControllerConfig
+    syms, _, svc = _broker_service(54, 40_001, 32, "symbol", observe=False)
+    want = torch.as_tensor(syms.astype(np.int32), device=cuda_device)
+    marks, queued = {}, threading.Event()
+    ingest, dispatch_group = svc.ingest, svc.dispatch_group
+
+    def long_ingest(name, symbols, n_splits):
+        marks["start"] = torch.cuda.Event(enable_timing=True)
+        marks["end"] = torch.cuda.Event(enable_timing=True)
+        marks["start"].record()
+        torch.cuda._sleep(2_000_000_000)      # about 1 s at the SM clock
+        marks["end"].record()
+        queued.set()
+        return ingest(name, symbols, n_splits)
+
+    def dispatch_then_ingest(requests, tickets):
+        dispatch_group(requests, tickets)     # launch + readiness event
+        b.submit_ingest("later", syms, 32)
+        assert queued.wait(30)                # the sleep is queued behind it
+
+    svc.ingest, svc.dispatch_group = long_ingest, dispatch_then_ingest
+    b = svc.start_pipeline(config=ControllerConfig(max_batch=1),
+                           predictive=False)
+    try:
+        t0 = time.perf_counter()
+        t = svc.submit("a", 32)
+        deadline = t0 + 30
+        while (b.snapshot()["dispatch_groups"] < 1
+               and time.perf_counter() < deadline):
+            time.sleep(0.001)
+        waited = time.perf_counter() - t0
+        assert b.snapshot()["dispatch_groups"] == 1
+        still_running = not marks["end"].query()
+        assert torch.equal(t.result(timeout=30), want)
+        b.drain(timeout=60)
+    finally:
+        svc.stop_pipeline()
+        svc.ingest, svc.dispatch_group = ingest, dispatch_group
+    sleep_ms = marks["start"].elapsed_time(marks["end"])
+    assert still_running, "the decode's wait covered later ingest work"
+    assert sleep_ms > 200 and waited * 1e3 < sleep_ms, (waited, sleep_ms)
+    assert (svc.decode("later", 32).cpu().numpy() == syms).all()
+
+
+CUDA_ERROR_AT_THE_WAIT = """
+import sys
+import numpy as np, torch
+from repro_torch.core.rans import RansParams, StaticModel
+from repro_torch.runtime.pipeline import ControllerConfig
+from repro_torch.runtime.serve import DecodeService
+rng = np.random.default_rng(55)
+syms = np.minimum(rng.exponential(40.0, size=30_000).astype(np.int64), 255)
+model = StaticModel.from_symbols(np.concatenate([syms, np.arange(256)]), 256,
+                                 RansParams(n_bits=11, ways=32))
+svc = DecodeService(model, observe=sys.argv[1] == "observe")
+svc.ingest("a", syms, 16)
+execute = svc.session.execute
+
+def faulting(plan):
+    out = execute(plan)
+    # An out-of-bounds gather queued right after the walk: a device-side
+    # assert that the host sees only when it next waits on the stream.
+    out[torch.full((1,), 1 << 40, dtype=torch.int64, device=out.device)]
+    return out
+
+svc.session.execute = faulting
+b = svc.start_pipeline(config=ControllerConfig(max_batch=1),
+                       predictive=False)
+t = svc.submit("a", 16, retries=1)
+try:
+    t.result(timeout=60)
+except RuntimeError as e:
+    err = str(e)
+else:
+    raise SystemExit("the CUDA error did not reach the ticket")
+b.drain(timeout=60)
+snap = b.snapshot()
+print("ERR", err.splitlines()[0])
+print("SNAP", snap["dispatch_errors"], snap["retries"],
+      snap["worker_restarts"], snap["completed"], flush=True)
+import os
+os._exit(0)
+"""
+
+
+@pytest.mark.parametrize("observe", [True, False])
+@in_child
+def test_cuda_error_at_the_wait_reaches_the_failure_handler(cuda_device,
+                                                            observe):
+    """A CUDA error raised at a group's wait (a device-side assert queued
+    after the walk, in a child process because it poisons the context)
+    reaches the broker's dispatch failure handler, for a ticket with one
+    retry, and no worker crashes.
+
+    With traces on (``observe=True``, the default) the service waits inside
+    ``dispatch_group``, before it fulfills the ticket: the handler spends
+    the retry, the retry faults on the poisoned context, and the ticket
+    carries the error (2 dispatch errors, 1 retry).  With traces off the
+    service fulfills the ticket at the launch and the broker's own wait
+    raises, as the reference's ``block_until_ready`` does after its
+    fulfillment: ``dispatch_errors`` counts it, the fulfilled ticket is not
+    retried, and the error reaches the caller through ``result()``'s own
+    wait (1 dispatch error, 0 retries)."""
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    out = subprocess.run(
+        [sys.executable, "-c", CUDA_ERROR_AT_THE_WAIT,
+         "observe" if observe else "quiet"],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": src}, check=False)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
+                 if line.startswith(("ERR ", "SNAP ")))
+    assert "CUDA" in lines["ERR"] or "device-side" in lines["ERR"], lines
+    want = ["2", "1", "0", "1"] if observe else ["1", "0", "0", "1"]
+    assert lines["SNAP"].split() == want, lines

@@ -2,19 +2,25 @@
 
 The port keeps its own copy of every jax-free module it needs (rans,
 interleaved, heuristic, recoil, bitio, metadata, conventional, container,
-adaptive; the runtime's trace, registry, profiler and faultinject) and
+adaptive; the runtime's trace, registry, profiler, faultinject and metrics,
+and the pipeline's controller and capability registry) and
 re-implements the host encoder.  These tests feed the same seeded inputs
 to both packages and require equal arrays and equal bytes, parse the
-frozen golden containers with the port, and hold the runtime copies' source
-text equal to the originals'.
+frozen golden containers with the port, hold the runtime copies' source
+text equal to the originals', and hold the code of the pipeline's two
+forks (broker, predictor) to the originals' apart from listed hunks.
 
 Each test runs in a child pytest process (``test_torch_isolation.in_child``),
 and the port is imported inside the tests, so the test worker itself never
 loads torch beside jaxlib.
 """
 
+import ast
+import difflib
 import glob
+import io
 import os
+import tokenize
 
 import numpy as np
 import pytest
@@ -242,19 +248,127 @@ def _source(package, module):
         return f.read()
 
 
+def _code_lines(text):
+    """The lines of a module other than its import statements."""
+    return [line for line in text.splitlines()
+            if not line.startswith(("import ", "from "))]
+
+
+def _code_only(text):
+    """The code of a module: no docstrings, comments, imports or blank
+    lines, each line without trailing space."""
+    skip = set()
+    for node in ast.walk(ast.parse(text)):
+        if (isinstance(node, (ast.Import, ast.ImportFrom))
+                or (isinstance(node, ast.Expr)
+                    and isinstance(node.value, ast.Constant)
+                    and isinstance(node.value.value, str))):
+            skip.update(range(node.lineno, node.end_lineno + 1))
+    lines = text.splitlines()
+    for tok in tokenize.generate_tokens(io.StringIO(text).readline):
+        if tok.type == tokenize.COMMENT:
+            row, col = tok.start
+            lines[row - 1] = lines[row - 1][:col]
+    return [line.rstrip() for i, line in enumerate(lines, 1)
+            if i not in skip and line.strip()]
+
+
+_WAIT_READY = [
+    "def _wait_ready(tickets) -> None:",
+    "    events = {id(t.ready): t.ready for t in tickets"
+    " if t.ready is not None}",
+    "    for ev in events.values():",
+    "        ev.synchronize()",
+    "def _on_device(device):",
+    '    if device.type != "cuda":',
+    "        return contextlib.nullcontext()",
+    "    return torch.cuda.device(device)"]
+_GROUP_WAIT = ["jax.block_until_ready(",
+               "    [t.out for t in tickets if t.out is not None])"]
+
+# The only code the forks change, as (reference lines, port lines) hunks in
+# file order: each ``jax.block_until_ready`` becomes a wait on the launch's
+# readiness event, the workers run on the service's device, the ticket's
+# ``result()`` waits on its event, and the controller config taken from a
+# tuning profile is left out (the port has no tuner).
+_FORK_HUNKS = {
+    "runtime/pipeline/broker.py": [
+        ([], _WAIT_READY),
+        ([], ["        if self.ready is not None:",
+              "            self.ready.synchronize()"]),
+        (["        if controller is None and config is None:",
+          '            profile = getattr(svc, "tuning_profile", None)',
+          "            if profile is not None and profile.microbatch_sizes:",
+          "                sizes = tuple(sorted(int(s)",
+          "                                     for s in"
+          " profile.microbatch_sizes))",
+          "                config = ControllerConfig(max_batch=sizes[-1],",
+          "                                          batch_sizes=sizes)"], []),
+        ([" " * 20 + line for line in _GROUP_WAIT],
+         [" " * 20 + "_wait_ready(tickets)"]),
+        (["        self._supervise(self._decode_main, self._recover_decode)"],
+         ["        with _on_device(self.svc.session.device):",
+          "            self._supervise(self._decode_main,"
+          " self._recover_decode)"]),
+        (["        self._supervise(self._ingest_main, self._recover_ingest)"],
+         ["        with _on_device(self.svc.session.device):",
+          "            self._supervise(self._ingest_main,"
+          " self._recover_ingest)"]),
+        (["            jax.block_until_ready(ticket.chunk(ticket.n_chunks"
+          " - 1))"],
+         ["            ticket.synchronize(ticket.n_chunks - 1)"]),
+        ([" " * 12 + line for line in _GROUP_WAIT],
+         [" " * 12 + "_wait_ready(tickets)"]),
+        (["                jax.block_until_ready(",
+          "                    [ticket.out] if ticket.out is not None"
+          " else [])"],
+         ["                _wait_ready([ticket])"]),
+    ],
+    "runtime/pipeline/predictor.py": [
+        (["            jax.block_until_ready(self._svc.session.execute(plan))"],
+         ["            ready = _launched(self._svc.session.execute(plan))",
+          "            if ready is not None:",
+          "                ready.synchronize()"]),
+    ],
+}
+
+
 @pytest.mark.parametrize("module", [
     "runtime/observability/trace.py", "runtime/observability/registry.py",
-    "runtime/observability/profiler.py", "runtime/faultinject.py"])
+    "runtime/observability/profiler.py", "runtime/faultinject.py",
+    "runtime/metrics.py", "runtime/pipeline/controller.py",
+    "runtime/pipeline/capability.py", "runtime/pipeline/broker.py",
+    "runtime/pipeline/predictor.py"])
 @in_child
 def test_copied_runtime_sources_equal_reference(module):
     """The jax-free runtime modules are copies: their text equals the
-    reference's, apart from docstring references to the package name and,
-    in ``faultinject.py``, the body of ``drop_last_word``, which reads the
-    port's int16 resident words (held by tests/test_torch_reliability.py)."""
+    reference's, apart from docstring references to the package name,
+    import lines (``capability.py`` imports the port's ``core``), and two
+    stated reads of the port's int16 resident words: in ``faultinject.py``
+    the body of ``drop_last_word`` (held by tests/test_torch_reliability.py)
+    and in ``capability.py`` the one line that copies a card stream's words
+    to the host through ``.cpu()`` where the reference's ``np.asarray``
+    would refuse a CUDA tensor (held by tests/test_torch_pipeline.py).
+    The broker and the predictor are forks: their docstrings and comments
+    speak of the port, and their code (no docstrings, comments or imports)
+    differs from the reference's in the hunks of ``_FORK_HUNKS`` alone."""
+    if module in _FORK_HUNKS:
+        ref = _code_only(_source("repro", module))
+        port = _code_only(_source("repro_torch", module))
+        match = difflib.SequenceMatcher(a=ref, b=port, autojunk=False)
+        hunks = [(ref[i1:i2], port[j1:j2])
+                 for op, i1, i2, j1, j2 in match.get_opcodes()
+                 if op != "equal"]
+        assert hunks == _FORK_HUNKS[module]
+        return
     ref = _source("repro", module).replace("repro.runtime.",
                                            "repro_torch.runtime.")
     port = _source("repro_torch", module)
     if module.endswith("faultinject.py"):
         cut = "def drop_last_word(stream):"
         ref, port = ref[:ref.index(cut)], port[:port.index(cut)]
+    if module.endswith("capability.py"):
+        ref = ref.replace("else np.asarray(ds.words[:ds.n_words]))",
+                          "else ds.words[:ds.n_words].cpu().numpy())")
+        ref, port = _code_lines(ref), _code_lines(port)
     assert port == ref

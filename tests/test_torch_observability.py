@@ -1,13 +1,18 @@
 """The port's observability tier on the CPU: ticket traces, the metrics
 registry, the launcher profiler in both sessions, and the metrics schema.
 
-The reference's non-broker observability tests, ported to the port's
-service (``device="cpu"``), a stream span tree, a check that the port's
+The reference's observability tests, ported to the port's service
+(``device="cpu"``): trace primitives, the registry and profiler, the
+``LatencyWindow`` reset and concurrency, span trees through the sync path,
+a stream and the pipeline broker (a warm round trip whose span-sum matches
+its end-to-end latency, ingest and stream trees, cancels, a result timeout,
+an admission rejection, deadline-miss accounting), a check that the port's
 ``SCHEMA`` is the reference's less a stated list of names whose source the
-port does not have, with equal types and labels for every other name, and
-one traffic sequence driven through the port's service and the reference's
-(``impl="jnp"``) whose counters and trace span trees must agree.  The
-two ``LatencyWindow`` tests wait for ``runtime/metrics.py``.
+port does not have, with equal types and labels for every other name (a
+running broker yields every ``recoil_broker_*`` name), and one traffic
+sequence, sync path then broker, driven through the port's service and the
+reference's (``impl="jnp"``) whose counters and trace span trees must
+agree.  Every broker wait here has a timeout of at most 30 s.
 
 Each test runs in a child pytest process (``test_torch_isolation.in_child``),
 and the port is imported inside the tests, so the test worker itself never
@@ -15,6 +20,8 @@ loads torch beside jaxlib.
 """
 
 import json
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -23,6 +30,7 @@ from test_torch_isolation import in_child
 from repro.core.rans import RansParams as JParams, StaticModel as JModel
 from repro.runtime.faultinject import FaultInjector as JInjector
 from repro.runtime.observability import SCHEMA as J_SCHEMA
+from repro.runtime.pipeline import ControllerConfig as JConfig
 from repro.runtime.serve import DecodeService as JService
 from repro.runtime.serve import DecodeTicket as JTicket
 
@@ -40,7 +48,12 @@ LEFT_OUT = (
 # Metrics whose values are host times, so differ between packages: held to
 # equal label sets (and, for the histogram, equal counts per label) only.
 TIMED = ("recoil_profiler_compile_seconds_total",
-         "recoil_profiler_run_seconds_total", "recoil_request_latency_ms")
+         "recoil_profiler_run_seconds_total", "recoil_request_latency_ms",
+         "recoil_broker_wait_ms", "recoil_broker_service_ms",
+         "recoil_broker_ingest_service_ms", "recoil_broker_overlap_ratio",
+         "recoil_controller_lane_rate_hz", "recoil_controller_service_ms")
+
+T = 30.0    # every broker wait in this file is bounded
 
 REQUIRED_SPANS = {"admission", "queue", "coalesce", "dispatch", "execute",
                   "delivery"}
@@ -62,6 +75,19 @@ def _service(payloads, n_splits=16, **kw):
     svc = DecodeService(model, device="cpu", **kw)
     svc.ingest_batch(payloads, n_splits)
     return svc
+
+
+def _config(**kw):
+    from repro_torch.runtime.pipeline import ControllerConfig
+    return ControllerConfig(**kw)
+
+
+def _frozen_broker(svc, **kw):
+    """A broker whose worker never dispatches on its own — tests control
+    exactly when tickets leave the lanes."""
+    return svc.start_pipeline(
+        config=_config(max_batch=64, batch_sizes=(64,),
+                       target_delay_ms=3_600_000.0), **kw)
 
 
 # ----------------------------------------------------------------------
@@ -209,6 +235,48 @@ def test_profiler_records_and_bounds_keys():
 
 
 # ----------------------------------------------------------------------
+# LatencyWindow (thread-safety + reset)
+# ----------------------------------------------------------------------
+
+@in_child
+def test_latency_window_reset_isolates_phases():
+    from repro_torch.runtime.metrics import LatencyWindow
+    w = LatencyWindow(size=16)
+    for _ in range(8):
+        w.record(1.0)                             # cold phase
+    w.reset()
+    assert w.count == 0
+    assert w.summary_ms()["count"] == 0
+    w.record(0.002)                               # warm phase only
+    s = w.summary_ms()
+    assert s["count"] == 1
+    assert s["p99_ms"] == pytest.approx(2.0)      # no cold-tail leakage
+
+
+@in_child
+def test_latency_window_concurrent_recorders():
+    from repro_torch.runtime.metrics import LatencyWindow
+    w = LatencyWindow(size=64)
+    stop = threading.Event()
+
+    def pound():
+        while not stop.is_set():
+            w.record(0.001)
+            w.summary_ms()
+
+    threads = [threading.Thread(target=pound) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for _ in range(50):
+        w.reset()
+        w.percentile(99)
+    stop.set()
+    for t in threads:
+        t.join()
+    assert w.summary_ms()["p50_ms"] in (0.0, pytest.approx(1.0))
+
+
+# ----------------------------------------------------------------------
 # Span trees through the service
 # ----------------------------------------------------------------------
 
@@ -245,6 +313,193 @@ def test_stream_span_tree():
     assert svc.obs.tracer.recent(kind="stream", status="ok") == [tr]
     lat = svc.metrics()["recoil_request_latency_ms"]["values"]
     assert lat["stream|ok"]["count"] == 1
+
+
+# ----------------------------------------------------------------------
+# Span trees through the broker
+# ----------------------------------------------------------------------
+
+@in_child
+def test_warm_roundtrip_span_tree_matches_e2e_latency():
+    from repro_torch.runtime.observability import waterfall
+    payloads = _payloads(n_contents=1)
+    svc = _service(payloads)
+    with svc.start_pipeline(config=_config(
+            max_batch=4, batch_sizes=(4,), target_delay_ms=5.0)):
+        for _ in range(2):                        # warm the group shape
+            tks = [svc.submit("c0", 8) for _ in range(4)]
+            for t in tks:
+                t.result(timeout=T)
+        tks = [svc.submit("c0", 8) for _ in range(4)]
+        outs = [t.result(timeout=T) for t in tks]
+    for t, out in zip(tks, outs):
+        np.testing.assert_array_equal(out.numpy(), payloads["c0"])
+        tr = t.trace
+        assert tr.status == "ok"
+        assert REQUIRED_SPANS <= set(tr.span_names())
+        e2e = t.completed_at - t.submitted_at
+        # Span-sum within 10% of the measured end-to-end latency.
+        assert tr.span_sum_s() == pytest.approx(e2e, rel=0.10)
+        # And internally exact: phases tile the trace lifetime.
+        assert tr.span_sum_s() == pytest.approx(tr.duration_s, rel=1e-9)
+    # The finished traces landed in the ring and the waterfall renders.
+    recent = svc.obs.tracer.recent(kind="decode", status="ok")
+    assert len(recent) >= 4
+    art = waterfall(recent[-1])
+    assert "execute" in art and "[ok]" in art
+
+
+@in_child
+def test_ingest_and_stream_span_trees():
+    payloads = _payloads(n_contents=1)
+    svc = _service(payloads)
+    with svc.start_pipeline() as b:
+        it = b.submit_ingest("new", payloads["c0"], 8)
+        it.result(timeout=T)
+        st = b.submit_stream("new", 8, n_chunks=4)
+        got = [st.chunk(i, timeout=T).numpy() for i in range(st.n_chunks)]
+        np.testing.assert_array_equal(np.concatenate(got), payloads["c0"])
+        b.drain(timeout=T)
+        assert it.trace.status == "ok"
+        assert {"admission", "queue", "execute"} <= set(it.trace.span_names())
+        assert st.trace.status == "ok"
+        assert {"admission", "queue", "dispatch",
+                "execute"} <= set(st.trace.span_names())
+
+
+@in_child
+def test_cancel_before_dispatch_terminates_span_tree():
+    from repro_torch.runtime.pipeline import TicketCancelled
+    payloads = _payloads(n_contents=1)
+    svc = _service(payloads)
+    _frozen_broker(svc)
+    try:
+        t = svc.submit("c0", 4)
+        assert t.cancel() is True
+        with pytest.raises(TicketCancelled):
+            t.result(timeout=1)
+    finally:
+        svc.stop_pipeline()
+    tr = t.trace
+    assert tr.status == "cancelled"
+    # Complete tree: admission, then the queue wait accounted as the
+    # terminal "cancelled" span (it never reached coalesce/dispatch).
+    assert tr.span_names() == ["admission", "cancelled"]
+    assert tr.span_sum_s() == pytest.approx(tr.duration_s)
+    assert tr.duration_s == pytest.approx(
+        t.completed_at - t.submitted_at, rel=0.10)
+    assert svc.obs.tracer.snapshot()["finished"].get("cancelled", 0) >= 1
+
+
+@in_child
+def test_cancel_in_flight_keeps_cancelled_status():
+    from repro_torch.runtime.pipeline import TicketCancelled
+    payloads = _payloads(n_contents=1)
+    svc = _service(payloads)
+    with svc.start_pipeline(config=_config(
+            max_batch=2, batch_sizes=(2,), target_delay_ms=5.0)):
+        gate = threading.Event()
+        orig = svc.dispatch_group
+
+        def slow_dispatch(requests, tickets):
+            gate.set()
+            time.sleep(0.15)
+            return orig(requests, tickets)
+
+        svc.dispatch_group = slow_dispatch
+        try:
+            t1 = svc.submit("c0", 4)
+            t2 = svc.submit("c0", 4)
+            assert gate.wait(timeout=T)
+            assert t1.cancel() is True            # races the dispatch
+            with pytest.raises(TicketCancelled):
+                t1.result(timeout=T)
+            t2.result(timeout=T)
+        finally:
+            svc.dispatch_group = orig
+    # The cancel won: terminal status stays "cancelled"; the dispatch's
+    # late execute/delivery/ok marks were dropped after termination.
+    assert t1.trace.status == "cancelled"
+    assert t1.trace.span_names()[-1] == "cancelled"
+    assert "delivery" not in t1.trace.span_names()
+    assert t2.trace.status == "ok"
+
+
+@in_child
+def test_result_timeout_records_event_then_cancel_terminates():
+    payloads = _payloads(n_contents=1)
+    svc = _service(payloads)
+    _frozen_broker(svc)
+    try:
+        t = svc.submit("c0", 4)
+        with pytest.raises(TimeoutError):
+            t.result(timeout=0.05)
+        assert t.trace.live                       # not terminated by expiry
+        names = t.trace.span_names()
+        assert "result_timeout" in names
+        assert t.cancel() is True
+    finally:
+        svc.stop_pipeline()
+    assert t.trace.status == "cancelled"
+    assert t.trace.span_names()[-1] == "cancelled"
+
+
+@in_child
+def test_admission_rejection_trace_carries_retry_hint():
+    from repro_torch.runtime.pipeline import BrokerSaturated
+    payloads = _payloads(n_contents=1)
+    svc = _service(payloads)
+    _frozen_broker(svc, max_queue=2)
+    try:
+        for _ in range(2):
+            svc.submit("c0", 4)
+        with pytest.raises(BrokerSaturated) as exc:
+            svc.submit("c0", 4)
+    finally:
+        svc.stop_pipeline()
+    rejected = svc.obs.tracer.recent(status="rejected")
+    assert len(rejected) == 1
+    tr = rejected[0]
+    assert tr.status == "rejected"
+    assert tr.span_names()[0] == "admission"
+    assert set(tr.span_names()) <= {"admission", "rejected"}
+    admission_meta = tr.to_dict()["spans"][0]["meta"]
+    assert admission_meta["rejected"] is True
+    assert admission_meta["retry_after_s"] == exc.value.retry_after_s
+    assert svc.obs.tracer.snapshot()["finished"]["rejected"] == 1
+
+
+@in_child
+def test_deadline_miss_accounting_per_class():
+    payloads = _payloads(n_contents=1)
+    svc = _service(payloads)
+    with svc.start_pipeline(config=_config(
+            max_batch=2, batch_sizes=(2,), target_delay_ms=5.0,
+            deadline_classes=(("rush", 0.001), ("lax", 600_000.0)),
+            default_class="lax")) as b:
+        # Warm, then one group with an impossible budget (must miss) and
+        # one with an enormous budget (must not).
+        for _ in range(2):
+            tks = [svc.submit("c0", 8) for _ in range(2)]
+            for t in tks:
+                t.result(timeout=T)
+        miss = [b.submit("c0", 8, deadline="rush") for _ in range(2)]
+        for t in miss:
+            t.result(timeout=T)
+        hit = [b.submit("c0", 8, deadline="lax") for _ in range(2)]
+        for t in hit:
+            t.result(timeout=T)
+        snap = b.snapshot()["deadline"]
+        m = svc.metrics()
+    miss_cls, hit_cls = miss[0].deadline_class, hit[0].deadline_class
+    assert snap[miss_cls]["missed"] == 2
+    assert snap[miss_cls]["fulfilled"] >= 2
+    assert snap[hit_cls]["missed"] == 0
+    assert snap[hit_cls]["fulfilled"] >= 2
+    # The unified snapshot exposes the per-class counts.
+    assert m["recoil_deadline_missed_total"]["values"][miss_cls] == 2
+    assert m["recoil_deadline_missed_total"]["values"][hit_cls] == 0
+    assert m["recoil_deadline_fulfilled_total"]["values"][hit_cls] >= 2
 
 
 @in_child
@@ -355,6 +610,36 @@ def test_metrics_snapshot_is_schema_stable():
         assert head[0].isalpha()
     assert 'recoil_request_latency_ms_bucket{kind="decode",status="ok",' \
         in text
+    # With a broker attached (one request held queued, so a lane has
+    # depth): every recoil_broker_* name of the reference's schema is
+    # yielded, with its type and labels, beside the controller, registry,
+    # heat and predictor names.
+    b = _frozen_broker(svc)
+    try:
+        b.submit_ingest("n3", payloads["c1"], 8).result(timeout=T)
+        queued = svc.submit("c0", 8)
+        snap = svc.metrics()
+        text = svc.metrics_text()
+    finally:
+        svc.stop_pipeline()
+    np.testing.assert_array_equal(queued.result(timeout=T).numpy(),
+                                  payloads["c0"])
+    broker_names = {n for n in J_SCHEMA if n.startswith("recoil_broker_")}
+    assert broker_names <= set(snap)
+    for name, entry in snap.items():
+        assert name in SCHEMA, f"uncatalogued metric {name}"
+        assert entry["type"] == SCHEMA[name][0], name
+        assert tuple(entry["labelnames"]) in (
+            tuple(sorted(SCHEMA[name][1])), tuple(SCHEMA[name][1])), name
+    for required in (
+            "recoil_registry_memo_hits_total", "recoil_heat_pairs",
+            "recoil_controller_lane_rate_hz",
+            "recoil_predictor_covered_pairs"):
+        assert required in snap, required
+    assert snap["recoil_broker_lane_depth"]["values"]["8"] == 1
+    assert snap["recoil_broker_submitted_total"]["values"][""] == 1
+    assert snap["recoil_broker_ingest_dispatches_total"]["values"][""] == 1
+    assert "# TYPE recoil_broker_wait_ms gauge" in text
 
 
 @in_child
@@ -427,3 +712,57 @@ def test_service_metrics_and_traces_match_reference():
     assert len(t_traces) == len(j_traces) == 5
     for t_tr, j_tr in zip(t_traces, j_traces):
         assert shape(t_tr) == shape(j_tr)
+
+    # The same services behind a broker that dispatches every request
+    # alone, each waited for (deterministic): decodes in three deadline
+    # classes, an ingest, a stream and a retried fault.  Every metric —
+    # the recoil_broker_* names, the controller's, registry's, heat and
+    # deadline names among them — agrees as above, host times aside.
+    def drive_broker(svc, inj, cfg_cls):
+        cfg = cfg_cls(max_batch=1, batch_sizes=(1,), target_delay_ms=1.0,
+                      deadline_classes=(("interactive", 60_000.0),
+                                        ("standard", 600_000.0),
+                                        ("bulk", 3_600_000.0)))
+        b = svc.start_pipeline(config=cfg, predictive=False,
+                               retry_backoff_ms=1.0)
+        try:
+            outs = [np.asarray(svc.submit(n, c, deadline=d).result(
+                timeout=T)) for n, c, d in (("c0", 8, None),
+                                            ("c1", 4, "interactive"),
+                                            ("c0", 4, "bulk"))]
+            b.submit_ingest("n3", payloads["c0"], 8).result(timeout=T)
+            outs.append(np.asarray(svc.submit("n3", 8).result(timeout=T)))
+            st = b.submit_stream("c1", 8, n_chunks=3)
+            outs.append(np.concatenate([np.asarray(st.chunk(i, timeout=T))
+                                        for i in range(st.n_chunks)]))
+            b.drain(timeout=T)
+            inj.arm("service.execute", times=1)
+            outs.append(np.asarray(svc.submit("c1", 8, retries=1).result(
+                timeout=T)))
+            b.drain(timeout=T)
+            return outs, svc.metrics()
+        finally:
+            svc.stop_pipeline()
+
+    t_outs, t_snap = drive_broker(tsvc, tinj, _config)
+    j_outs, j_snap = drive_broker(jsvc, jinj, JConfig)
+    for t_out, j_out in zip(t_outs, j_outs, strict=True):
+        np.testing.assert_array_equal(t_out, j_out)
+    assert set(t_snap) == set(j_snap) - set(LEFT_OUT)
+    assert {n for n in t_snap if n.startswith("recoil_broker_")} == \
+        {n for n in J_SCHEMA if n.startswith("recoil_broker_")} - {
+            "recoil_broker_lane_depth"}        # no lane holds a request
+    j_snap["recoil_profiler_compiles_total"]["values"]["encode"] = 0
+    for name in t_snap:
+        t_vals, j_vals = t_snap[name]["values"], j_snap[name]["values"]
+        if name not in TIMED:
+            assert t_vals == j_vals, name
+        elif name == "recoil_request_latency_ms":
+            assert {k: v["count"] for k, v in t_vals.items()} == \
+                {k: v["count"] for k, v in j_vals.items()}, name
+        else:
+            assert set(t_vals) == set(j_vals), name
+    assert t_snap["recoil_broker_retries_total"]["values"][""] == 1
+    assert t_snap["recoil_broker_completed_total"]["values"][""] == 6
+    assert [shape(tr) for tr in tsvc.obs.tracer.recent()] == \
+        [shape(tr) for tr in jsvc.obs.tracer.recent()]

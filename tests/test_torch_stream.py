@@ -9,7 +9,11 @@ the prefix), and ``DecodeService``'s streaming surface (``decode_chunks``,
 ``submit_stream``, ``stream_chunk_count``, ``StreamTicket``) must return
 what the reference's does, with equal counters.  The chunked wire container
 must be byte-equal and decode chunk by chunk from its directory's prefixes.
-Every comparison is an exact equality (integer codec).
+Through the pipeline broker: extends racing in-flight decodes (every
+response is one version's complete asset, never a mix), ``submit_stream``
+routed to the broker's decode worker, and ``extend`` invalidating the
+capability registry's memos.  Every comparison is an exact equality
+(integer codec); every broker wait has a timeout of at most 30 s.
 
 Each test runs in a child pytest process (``test_torch_isolation.in_child``),
 and the port is imported inside the tests, so the test worker itself never
@@ -331,3 +335,117 @@ def test_chunked_container_round_trip_and_prefix_decode():
     assert parsed.chunks.ready(0) == 0
     assert parsed.chunks.ready(int(parsed.chunks.words_end[1])) == 2
     assert parsed.chunks.ready(enc.n_words) == 4
+
+
+# ----------------------------------------------------------------------
+# Through the pipeline broker
+# ----------------------------------------------------------------------
+
+T = 30.0    # every broker wait here is bounded
+
+
+def _port_service():
+    from repro_torch.runtime.serve import DecodeService
+    return DecodeService(_port_model(_model()), device="cpu")
+
+
+def _stream_symbols(st):
+    return np.concatenate([st.chunk(i, timeout=T).numpy()
+                           for i in range(st.n_chunks)])
+
+
+@in_child
+def test_service_extend_generation_and_memo_invalidation():
+    from repro_torch.core import container
+    svc = _port_service()
+    base = _symbols(20, 10_000)
+    svc.ingest("a", base, 16)
+    np.testing.assert_array_equal(svc.decode("a", 8).numpy(), base)
+    gen = svc.generation("a")
+    broker = svc.start_pipeline()
+    try:
+        reg = broker.registry
+        reg.declare("phone", 8)
+        plan1 = reg.plan_for("a", "phone")     # memoized at gen
+        assert plan1.n_symbols == len(base)
+        delta = _symbols(21, 700)
+        svc.extend("a", delta)
+        grown = np.concatenate([base, delta])
+        assert svc.generation("a") == gen + 1
+        # the per-(name, n_threads) plan memo was invalidated: the decode
+        # reflects the grown asset, not the stale plan
+        np.testing.assert_array_equal(svc.decode("a", 8).numpy(), grown)
+        # capability-registry memo re-derives against the new generation
+        plan2 = reg.plan_for("a", "phone")
+        assert plan2.n_symbols == len(grown) != plan1.n_symbols
+        # ...and the thinned wire payload serves the grown asset too
+        buf = reg.container_for("a", "phone")
+        parsed = container.parse(buf, svc.session.model.params)
+        assert parsed.n_symbols == len(grown)
+        jbuf = j_container.parse(buf, _model().params)
+        assert jbuf.n_symbols == len(grown)
+    finally:
+        svc.stop_pipeline()
+
+
+@in_child
+def test_extend_during_inflight_decode_via_broker():
+    """Extends racing decode traffic through the broker: every response is
+    internally consistent (some version's complete asset), and a decode
+    after the last extend ticket resolves serves the grown asset."""
+    svc = _port_service()
+    base = _symbols(22, 20_000)
+    svc.ingest("a", base, 16)
+    versions = [base]
+    broker = svc.start_pipeline()
+    try:
+        tickets = [svc.submit("a", 8) for _ in range(6)]
+        ext = []
+        for i in range(3):
+            delta = _symbols(23 + i, 1_000)
+            versions.append(np.concatenate([versions[-1], delta]))
+            ext.append(broker.submit_extend("a", delta))
+            tickets.extend(svc.submit("a", 8) for _ in range(4))
+        for t in ext:
+            t.result(timeout=T)
+        broker.drain(timeout=T)
+        for t in tickets:
+            out = t.result(timeout=T).numpy()
+            assert any(len(v) == len(out) and (out == v).all()
+                       for v in versions), "response matches no version"
+        # post-drain: the newest version serves
+        np.testing.assert_array_equal(svc.decode("a", 8).numpy(),
+                                      versions[-1])
+        assert broker.snapshot()["extend_events"] == 3
+    finally:
+        svc.stop_pipeline()
+
+
+@in_child
+def test_submit_stream_sync_and_broker():
+    svc = _port_service()
+    syms = _symbols(25, 24_000)
+    svc.ingest("a", syms, 16)
+    t = svc.submit_stream("a", 16, n_chunks=4)
+    # per-chunk arrival order + reassembly
+    got = [c.numpy() for c in t]
+    assert len(got) == 4 and (np.concatenate(got) == syms).all()
+    assert t.first_chunk_at is not None
+    assert t.completed_at >= t.first_chunk_at >= t.submitted_at
+    assert [s.base for s in t.specs] == \
+        list(np.cumsum([0] + [s.length for s in t.specs[:-1]]))
+    # clamped chunk count
+    assert svc.submit_stream("a", 2, n_chunks=9).n_chunks == 2
+    broker = svc.start_pipeline()
+    try:
+        bt = svc.submit_stream("a", 16, n_chunks=4)   # routes via broker
+        np.testing.assert_array_equal(_stream_symbols(bt), syms)
+        assert bt.trace.meta.get("path") != "sync"
+        assert [(s.base, s.length, s.words_end) for s in bt.specs] == \
+            [(s.base, s.length, s.words_end) for s in t.specs]
+        with pytest.raises(KeyError):
+            broker.submit_stream("nope", 8)
+        broker.drain(timeout=T)
+        assert broker.snapshot()["stream_dispatches"] >= 1
+    finally:
+        svc.stop_pipeline()
