@@ -3,11 +3,14 @@
     python3 chip_smoke.py
 
 Drives only the port (``src/repro_torch``) — nothing of JAX or of the JAX
-package — in five phases, each failing loudly with a non-zero exit:
+package — in six phases, each failing loudly with a non-zero exit:
 
   1. device  — the card's name, count, and ``nvidia-smi`` name/power limit;
   2. build   — one ``nvcc`` per kernel source, started together, with each
-               ``-Xptxas -v`` register and shared-memory report, and, read
+               ``-Xptxas -v`` register and shared-memory report (the walks'
+               as one line of registers per kernel and slot table over
+               their (W, block) instances, and the default 128-thread
+               launch's on a line of its own), and, read
                from the encode kernel's SASS, the instructions its chain
                warp issues a step and those on the state's chain;
   3. kernels — each kernel against its plain torch version on the card.
@@ -121,7 +124,23 @@ package — in five phases, each failing loudly with a non-zero exit:
                its bound and its plain version's time; for the planner
                also its time a slot, the design's own model, the split of
                its device time between its three kernels (``torch.profiler``)
-               and the round in which each slot was won.
+               and the round in which each slot was won;
+  6. tuning  — both walks at every ``rows_per_block`` W = 32 allows (1, 2,
+               4, 8, 16, 32 warps and None) on the main path's 16-, 128-
+               and 2176-thread plans, each launch bit-equal to the plain
+               walk, the default launch and the symbols, with its
+               CUDA-event time; then, with the counts at 0,
+               ``Autotuner(device="cuda")`` on 1, 4 and 10 MB requests with
+               2176-split plans into a temporary database (never the user
+               cache): measurements > 0 under ``cuda:cuda:auto``, the fit
+               and the derived ladder printed, and a second tuner on the
+               same workload with 0 measurements; a ``REPRO_TUNING_DB``
+               that fails to load must raise; a ``DecodeService`` with
+               that profile ingests expo and registers zipf's resident
+               stream, decodes both at 16, 128 and 2176 threads and in a
+               fused group, bit-equal, twice (the warm round resolving no
+               launcher), and its broker takes the profile's microbatch
+               sizes.  This path's launches join the kernel table's.
 
 Prints, before the last line, the kernel table as one JSON object and the
 card's ``nvidia-smi`` line; the last line is the JSON run summary.  Exits
@@ -387,6 +406,46 @@ def _loop_chain(sass: str, kernel: str) -> tuple[int, list]:
     return best
 
 
+_WALK_INSTANCE = re.compile(r"(walk_pointer|walk_symbol)_kernelILb([01])ELi"
+                            r"(\d+)ELi(\d+)EE")
+
+
+def _log_walk_registers(report: str) -> None:
+    """The walk library's ``-Xptxas -v`` report, one line per kernel and
+    slot-table layout: registers a thread (and spill bytes, if any) of each
+    (W, block) instance.  The 128-thread column is the default launch
+    (``rows_per_block=None``); its own line follows."""
+    regs, name, spill = {}, None, 0
+    for line in report.splitlines():
+        m = _WALK_INSTANCE.search(line)
+        if "Compiling entry" in line:
+            name = m and (m.group(1), m.group(2) == "1", int(m.group(3)),
+                          int(m.group(4)))
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = (int(m.group(1)), spill)
+    if not regs:
+        fail("no walk kernel instance in the ptxas report")
+    for kernel in ("walk_pointer", "walk_symbol"):
+        for packed in (False, True):
+            cells = []
+            for ways in (8, 16, 32, 64, 128):
+                per = [f"{b}:{r}" + (f"(spill {sp} B)" if sp else "")
+                       for (k, pk, w, b), (r, sp) in sorted(regs.items())
+                       if (k, pk, w) == (kernel, packed, ways)]
+                cells.append(f"W{ways} {' '.join(per)}")
+            log(f"[build] {kernel} {'packed' if packed else 'three-table'} "
+                f"registers by block threads: {'; '.join(cells)}")
+    default = {f"{k} {'packed' if pk else 'three-table'} W{w}": r
+               for (k, pk, w, b), (r, _) in sorted(regs.items()) if b == 128}
+    log(f"[build] default launch (rows_per_block=None, 128 threads) "
+        f"registers a thread: {default}; {len(regs)} walk instances")
+
+
 def phase_build(libraries) -> tuple[float, float]:
     """Builds every kernel library at once (one nvcc each), loads them and
     returns, from the encode kernel's SASS, the instructions on one step's
@@ -399,7 +458,8 @@ def phase_build(libraries) -> tuple[float, float]:
         lib.load()
     log(f"[build] {len(libraries)} x nvcc (in parallel) + load "
         f"{time.perf_counter() - t:.1f} s")
-    for lib in libraries:
+    _log_walk_registers(libraries[0].ptxas_report())
+    for lib in libraries[1:]:
         for line in lib.ptxas_report().splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log("[build] " + line.strip())
@@ -1519,7 +1579,7 @@ def _ring_words(plan, qf) -> int:
                                for i in (8, 9, 10, 7))
     last = words.numel() // W - 1
     steps = torch.minimum(g_hi - stop // W + 1,
-                          torch.tensor(plan.statics["n_steps"]))
+                          torch.tensor(plan.n_steps))
     row0 = g_hi + base // W
     top = clip(row0, last) // SYMBOL_ROWS
     low = clip(row0 - steps + 1, last) // SYMBOL_ROWS
@@ -1540,14 +1600,15 @@ def phase_times(svc, assets, enc, launches, errs, smi):
                 fail(f"{name} planned on {plan.layout}")
             ex = svc.session.executor
             kern = ex.lower(plan)
-            run = dict(n_symbols=plan.n_symbols, covered=plan.covered)
+            run = dict(n_steps=plan.n_steps, n_symbols=plan.n_symbols,
+                       covered=plan.covered)
             plain_fn = (_walk_batch_symbol_impl if plan.layout == "symbol"
                         else _walk_batch_impl)
 
             # The call the main path makes, held against the plain walk on
             # the same arguments, then timed.
             got = kern(*plan.args, **run)
-            ref = plain_fn(*plan.args, **plan.statics,
+            ref = plain_fn(*plan.args, **plan.statics, n_steps=plan.n_steps,
                            n_symbols=plan.n_symbols)
             qf = None
             if plan.layout == "pointer":
@@ -1577,6 +1638,7 @@ def phase_times(svc, assets, enc, launches, errs, smi):
         plain_fn = (_walk_batch_symbol_impl if plan.layout == "symbol"
                     else _walk_batch_impl)
         plain_ms, _ = cuda_ms(lambda: plain_fn(*plan.args, **plan.statics,
+                                               n_steps=plan.n_steps,
                                                n_symbols=plan.n_symbols), 2)
         log(f"[times] {kname} plain version at {PLAN_THREADS} threads: "
             f"{plain_ms:.3f} ms; card: {smi}")
@@ -2111,6 +2173,180 @@ def _profile_planner(pargs, st, plan, S, smi) -> None:
     log(f"[times] plan_splits on expo: slots won by round {counts}")
 
 
+SWEEP_ROWS_PER_BLOCK = (None, 1, 2, 4, 8, 16, 32)   # warps a block at W 32
+TUNE_SIZES = (1 * MB, 4 * MB, 10 * MB)
+
+
+def _sweep_rows_per_block(svc, assets, rd, errs, smi) -> None:
+    """Both walks at every rows_per_block the W = 32 plans allow, on the main
+    path's plans at THREADS: each launch bit-equal to the plain walk, the
+    default launch and the symbols, then its CUDA-event time (mean of
+    TIME_REPS)."""
+    from repro_torch.core.vectorized import (_walk_batch_impl,
+                                             _walk_batch_symbol_impl)
+    for kname, name in (("walk_pointer", "zipf"), ("walk_symbol", "expo")):
+        want = torch.as_tensor(assets[name].astype(np.int32), device="cuda")
+        fn = getattr(rd, f"walk_decode_{kname.split('_')[1]}")
+        for th in THREADS:
+            plan = svc.prepare_request(name, th)
+            run = dict(**plan.statics, n_steps=plan.n_steps,
+                       n_symbols=plan.n_symbols, covered=plan.covered)
+            plain = (_walk_batch_symbol_impl if plan.layout == "symbol"
+                     else _walk_batch_impl)(*plan.args, **plan.statics,
+                                            n_steps=plan.n_steps,
+                                            n_symbols=plan.n_symbols)
+            plain = plain if plan.layout == "symbol" else plain[0]
+            base = fn(*plan.args, **run)
+            base = base if plan.layout == "symbol" else base[0]
+            times = {}
+            for rpb in SWEEP_ROWS_PER_BLOCK:
+                got = fn(*plan.args, **run, rows_per_block=rpb)
+                got = got if plan.layout == "symbol" else got[0]
+                _compare(kname, got, plain, errs)
+                if not (torch.equal(got, base) and torch.equal(got, want)):
+                    fail(f"{kname} at rows_per_block={rpb}, {th} threads "
+                         "differs from the default launch or the symbols")
+                times[rpb], _ = cuda_ms(
+                    lambda: fn(*plan.args, **run, rows_per_block=rpb),
+                    TIME_REPS)
+            cells = "; ".join(f"{r}: {t:.4f}" for r, t in times.items())
+            log(f"[tuning] rows_per_block sweep, {kname} on {name} at {th} "
+                f"threads, bit-equal to the plain walk and the default "
+                f"(device ms, CUDA events, mean of {TIME_REPS}; None = 128 "
+                f"threads, r = 32 r threads): {cells}; card: {smi}")
+
+
+def phase_tuning(svc, assets, rd, re_, errs, smi) -> dict:
+    """The autotuner and a tuned service on the card (phase 6).
+
+    First the rows_per_block sweep (comparisons, not counted).  Then, with
+    every count at 0: ``Autotuner(device="cuda")`` on TUNE_SIZES with
+    PLAN_THREADS-split plans into a temporary database (never the user
+    cache), which must measure and key ``cuda:cuda:auto``, and a second
+    tuner on the same workload, which must measure nothing; a
+    ``REPRO_TUNING_DB`` that fails to load must raise; then a
+    ``DecodeService(policy=<that profile>)`` ingests expo and registers
+    zipf's resident stream, decodes both at THREADS and in a fused group,
+    bit-equal, repeats that traffic warm without resolving a launcher, and
+    its broker takes the profile's microbatch sizes.  Returns this path's
+    launches."""
+    import tempfile
+    from repro_torch.core.tuning import (Autotuner, TuningSchemaError,
+                                         user_db_path)
+    from repro_torch.runtime.serve import DecodeService
+    _sweep_rows_per_block(svc, assets, rd, errs, smi)
+    rd.reset_counts()
+    re_.reset_counts()
+    cache = user_db_path()
+    cache_before = cache.stat().st_mtime_ns if cache.exists() else None
+    with tempfile.TemporaryDirectory() as tmp:
+        db_path = os.path.join(tmp, "tuning.json")
+        t = time.perf_counter()
+        tuner = Autotuner(device="cuda", n_splits=PLAN_THREADS)
+        prof = tuner.tune(TUNE_SIZES, db_path=db_path)
+        took = time.perf_counter() - t
+        if tuner.measurements == 0 or prof.key != "cuda:cuda:auto":
+            fail(f"the tuner made {tuner.measurements} measurements under "
+                 f"{prof.key!r}")
+        fit = prof.meta
+        sweep = fit["rows_per_block_sweep"]
+        log(f"[tuning] Autotuner(device='cuda') on {TUNE_SIZES} symbols with "
+            f"{PLAN_THREADS}-split plans: {tuner.measurements} measurements "
+            f"in {took:.1f} s; key {prof.key}; fit: launcher resolve "
+            f"{fit['compile_s'] * 1e6:.3f} us a key (the first call's host "
+            f"time beyond a warm call's), execute (device) "
+            f"{fit['exec_intercept_s'] * 1e6:.3f} us + "
+            f"{fit['exec_slope_s'] * 1e9:.4f} ns x steps bucket; probes "
+            f"(rung, resolve s, warm device s) {fit['probes']}; card: {smi}")
+        log(f"[tuning] derived work ladder ({len(prof.work_ladder)} rungs): "
+            f"{list(prof.work_ladder)}; microbatch sizes "
+            f"{list(prof.microbatch_sizes)}; rows_per_block "
+            f"{prof.rows_per_block} from the timed sweep "
+            f"{ {k: v.get('warm_s') for k, v in sweep['candidates'].items()} }"
+            f" (s, CUDA events behind a device sleep, median of "
+            f"{tuner.repeats}); card: {smi}")
+        again = Autotuner(device="cuda", n_splits=PLAN_THREADS)
+        if again.tune(TUNE_SIZES, db_path=db_path) != prof or \
+                again.measurements != 0:
+            fail(f"a second tuner on the same workload made "
+                 f"{again.measurements} measurements")
+        log("[tuning] a second tuner on the same workload: 0 measurements, "
+            "the stored profile")
+        bad = os.path.join(tmp, "bad.json")
+        with open(bad, "w") as f:
+            json.dump({"schema": 0, "profiles": {}}, f)
+        os.environ["REPRO_TUNING_DB"] = bad
+        try:
+            DecodeService(svc.session.model, device="cuda")
+        except TuningSchemaError:
+            pass
+        else:
+            fail("a REPRO_TUNING_DB that fails to load did not raise")
+        finally:
+            del os.environ["REPRO_TUNING_DB"]
+    if (cache.stat().st_mtime_ns if cache.exists() else None) != cache_before:
+        fail(f"the tuner wrote the user cache {cache}")
+
+    tuned = DecodeService(svc.session.model, device="cuda", policy=prof)
+    if tuned.tuning_profile is not prof:
+        fail("the tuned service does not report its profile")
+    tuned.ingest("expo", assets["expo"].astype(np.uint8), PLAN_THREADS)
+    z = svc.content("zipf")
+    tuned.register("zipf", z.plan, z.stream, z.final_states)
+    if {k: tuned.layout_for(k) for k in assets} != \
+            {"expo": "symbol", "zipf": "pointer"}:
+        fail("the tuned service's layouts differ from the main path's")
+    want = {k: torch.as_tensor(v.astype(np.int32), device="cuda")
+            for k, v in assets.items()}
+    reqs = [(n, th) for th in THREADS for n in assets]
+
+    def traffic():
+        for name, th in reqs:
+            if not torch.equal(tuned.decode(name, th), want[name]):
+                fail(f"tuned {name} at {th} threads != input symbols")
+        tickets = [tuned.submit(n, th) for n, th in reqs]
+        tuned.flush()
+        for (name, th), tk in zip(reqs, tickets):
+            if not torch.equal(tk.result(), want[name]):
+                fail(f"tuned fused {name} at {th} threads != input symbols")
+
+    traffic()
+    keys = tuned.session.stats.compiles
+    traffic()
+    if tuned.session.stats.compiles != keys:
+        fail("the tuned service's warm round resolved a launcher")
+    if any(isinstance(k, tuple) and prof.policy().tag not in k
+           for k in tuned.session._exec):
+        fail("a tuned plan key lacks the profile's tag")
+    enc = tuned._encode_session()
+    with tuned.start_pipeline() as broker:
+        sizes = broker.controller.cfg.sizes()
+        if sizes != tuple(sorted(prof.microbatch_sizes)):
+            fail(f"the broker's sizes {sizes} are not the profile's")
+        for name, th in reqs[:2]:
+            if not torch.equal(broker.submit(name, th).result(timeout=60),
+                               want[name]):
+                fail(f"tuned broker {name} at {th} threads != input symbols")
+    tuned.stop_pipeline()
+    torch.cuda.synchronize()
+    launches = {"walk_pointer": rd.walk_decode_pointer.launches,
+                "walk_symbol": rd.walk_decode_symbol.launches,
+                "encode_scan": re_.encode_scan.launches,
+                "plan_splits": re_.plan_splits.launches}
+    plain = (rd.walk_decode_pointer.plain_calls
+             + rd.walk_decode_symbol.plain_calls
+             + re_.encode_scan.plain_calls + re_.plan_splits.plain_calls)
+    if min(launches.values()) == 0 or plain != 0:
+        fail(f"the tuning path's launches {launches}, plain versions {plain}")
+    log(f"[tuning] tuned service ({tuned.session.policy.tag}): both assets at "
+        f"{THREADS} threads and a fused group of {len(reqs)}, bit-exact, "
+        f"twice; {keys} keys resolved, 0 in the warm round; its encoder's "
+        f"policy {enc.policy.tag} (profile "
+        f"{enc.tuning_profile and enc.tuning_profile.key}); broker sizes "
+        f"{sizes}; this path's launches {launches}, plain versions 0")
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     sys.path.insert(0, SRC)
@@ -2131,6 +2367,10 @@ def main() -> int:
     phase_observe_cost(svc, assets, smi)
     phase_broker_times(svc, assets, smi)
     rows += phase_ingest_times(svc, assets, launches, errs, smi, sass)
+    for name, n in phase_tuning(svc, assets, rd, re_, errs, smi).items():
+        for row in rows:
+            if row["name"] == name:
+                row["launches"] += n
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

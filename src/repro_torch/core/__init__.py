@@ -14,6 +14,8 @@
                  plan cache, Hopper kernels on the card)
   encode       — EncoderSession: encode + Def-4.1 split planning on the
                  device (Hopper kernels on the card), the ingest side
+  tuning       — the autotuner and its tuning database (bucket ladders,
+                 the walk kernels' block size, microbatch sizes)
 
 The modules without torch code are copies of the JAX package's; tests hold
 them byte-equal to the originals.
@@ -30,6 +32,7 @@ from .conventional import (ConventionalEncoded, decode_conventional,  # noqa: F4
 from .vectorized import (WalkBatch, decode_conventional_fast,  # noqa: F401
                          decode_recoil_fast, encode_interleaved_fast,
                          walk_decode_batch)
-from .engine import (DecoderSession, DeviceStream,  # noqa: F401
+from .engine import (BucketPolicy, DecoderSession, DeviceStream,  # noqa: F401
                      pow2_bucket, work_bucket)
 from .encode import EncoderSession, IngestResult  # noqa: F401
+from .tuning import Autotuner, Profile, TuningDB  # noqa: F401

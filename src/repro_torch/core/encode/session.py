@@ -98,6 +98,17 @@ class EncoderSession:
     Def-4.1 candidate half-window (it must match the oracle's to stay
     bit-exact).
 
+    ``policy`` resolves the ingest's own bucket ladder, with the
+    :class:`~repro_torch.core.engine.session.DecoderSession` contract
+    (``None`` = legacy unless ``REPRO_TUNING_DB`` is set,
+    ``"tuned"``/``"legacy"``, a ``BucketPolicy`` or a tuning ``Profile``)
+    under its own profile key, layout ``"encode"`` (``cuda:cuda:encode`` on
+    the card, ``cpu:torch:encode`` on the CPU), exposed as :attr:`policy`
+    and :attr:`tuning_profile`.  The ingest kernels take their sizes at run
+    time and the session keeps no executable cache, so no encode dimension
+    is padded by the policy: it is resolved and reported, as the
+    reference's is, and shapes nothing here.
+
     ``resume_capacity`` bounds the per-name resumable-tail map that
     :meth:`extend` reads: least-recently-used tails beyond it are evicted
     (``stats.resume_evictions``) and later extends of those names raise
@@ -109,9 +120,13 @@ class EncoderSession:
     """
 
     def __init__(self, model, *, device="cuda", window: int = 96,
-                 resume_capacity: int = 64, profiler=None):
+                 policy=None, resume_capacity: int = 64, profiler=None):
         self.device = resolve_device(device)
         self.profiler = profiler
+        from ..tuning import resolve_policy
+        self.policy, self.tuning_profile = resolve_policy(
+            policy, impl="cuda" if self.device.type == "cuda" else "torch",
+            layout="encode")
         self.model = model
         self.adaptive = np.asarray(model.f).ndim == 2
         self.params = model.params

@@ -1,6 +1,7 @@
 """Persistent decode engine: device-resident tables + a bucketed plan cache.
 
-  * ``plan``      — the :class:`DecodePlan` IR (bucket selection, inert-row
+  * ``plan``      — the bucket policies (:class:`BucketPolicy`), the
+                    :class:`DecodePlan` IR (bucket selection, inert-row
                     padding, arg assembly, cache keying), the microbatch
                     fusion primitive :func:`concat_walk_batches` and the
                     chunk axis :func:`chunk_walk_batch`;
@@ -10,20 +11,23 @@
                     with exact accounting.
 """
 
-from .plan import (ChunkSpec, DecodePlan, DeviceStream, SPLIT_FIELDS,
-                   SYMBOL_SPLIT_FIELDS, chunk_bounds, chunk_walk_batch,
-                   concat_walk_batches, derive_symbol_layout,
-                   kept_windows_tile, pad_split_arrays, pow2_bucket,
-                   with_symbol_layout, work_bucket)
+from .plan import (BucketPolicy, ChunkSpec, DecodePlan, DeviceStream,
+                   LEGACY_POLICY, LadderBucketPolicy, LegacyBucketPolicy,
+                   SPLIT_FIELDS, SYMBOL_SPLIT_FIELDS, chunk_bounds,
+                   chunk_walk_batch, concat_walk_batches,
+                   derive_symbol_layout, kept_windows_tile, legacy_rungs,
+                   pad_split_arrays, pow2_bucket, with_symbol_layout,
+                   work_bucket)
 from .executors import (CudaExecutor, Executor, TorchExecutor,
                         make_executor)
 from .session import DecoderSession, EngineStats
 
 __all__ = [
-    "ChunkSpec", "CudaExecutor", "DecodePlan", "DecoderSession",
-    "DeviceStream", "EngineStats", "Executor", "SPLIT_FIELDS",
-    "SYMBOL_SPLIT_FIELDS", "TorchExecutor", "chunk_bounds",
+    "BucketPolicy", "ChunkSpec", "CudaExecutor", "DecodePlan",
+    "DecoderSession", "DeviceStream", "EngineStats", "Executor",
+    "LEGACY_POLICY", "LadderBucketPolicy", "LegacyBucketPolicy",
+    "SPLIT_FIELDS", "SYMBOL_SPLIT_FIELDS", "TorchExecutor", "chunk_bounds",
     "chunk_walk_batch", "concat_walk_batches", "derive_symbol_layout",
-    "kept_windows_tile", "make_executor",
+    "kept_windows_tile", "legacy_rungs", "make_executor",
     "pad_split_arrays", "pow2_bucket", "with_symbol_layout", "work_bucket",
 ]

@@ -19,9 +19,11 @@ Backends:
 Both read the whole resident stream (or permutation) and the (S, W) split
 arrays directly, so they share one ``plan``.  The split arrays hold the
 request's real rows; the key carries their bucket, so its counts match the
-reference's.  A launcher is bound to the key's bucketed step count; ``run``
-passes what differs between plans of one key -- the real output length and
-whether the kept windows tile the output -- at run time.
+reference's.  A launcher is bound to what every plan of its key shares
+(``n_bits``, ``ways``, ``rows_per_block``); ``run`` passes what differs
+between plans of one key -- the real walk depth, the real output length and
+whether the kept windows tile the output -- at run time, so a walk runs
+the steps its splits need and not its key's bucket.
 """
 
 from __future__ import annotations
@@ -34,12 +36,13 @@ import torch
 
 from ..rans import StaticModel
 from ..vectorized import WalkBatch
-from ...kernels.rans_decode.rans_decode import (load_library,
+from ...kernels.rans_decode.rans_decode import (check_rows_per_block,
+                                                load_library,
                                                 walk_decode_pointer,
                                                 walk_decode_symbol)
-from .plan import (DecodePlan, DeviceStream, SPLIT_FIELDS,
-                   SYMBOL_SPLIT_FIELDS, kept_windows_tile, pad_split_arrays,
-                   pow2_bucket, work_bucket)
+from .plan import (BucketPolicy, DecodePlan, DeviceStream, LEGACY_POLICY,
+                   SPLIT_FIELDS, SYMBOL_SPLIT_FIELDS, kept_windows_tile,
+                   pad_split_arrays, pow2_bucket)
 
 
 class Executor:
@@ -54,27 +57,40 @@ class Executor:
     raises on content registered without an emission log).  The selected
     layout joins the plan key, so the two walks never share launchers.
 
-    Split rows and walk steps join the plan key at their ``work_bucket``,
-    the output length at its ``pow2_bucket``; only the walk's step count is
-    launched at its bucket.  Streams reside at their pow2 bucket
-    (``upload_stream``).
+    ``policy`` is the bucket ladder: split rows and walk steps join the
+    plan key through ``policy.work``, the output length through
+    ``policy.mem``, and ``policy.tag`` joins every key, so two ladders
+    never alias one launcher.  Nothing is launched at its bucket: the split
+    rows, steps and output keep their real sizes.  Streams reside at their
+    pow2 bucket (``upload_stream``) whatever the policy -- a handle is
+    shared across executors and must not depend on any one ladder.
+
+    ``rows_per_block`` is the walk kernels' block size in warps (the
+    wrappers' docstring; ``None`` = the default 128 threads).  It joins the
+    key and is bound into every launcher; the plain walks on the CPU accept
+    it and ignore it.
     """
 
     impl: str = "?"
     device_type: str = "?"
 
     def __init__(self, model: StaticModel, packed_lut: bool, luts: tuple,
-                 device: torch.device, layout: str = "auto"):
+                 device: torch.device, layout: str = "auto",
+                 policy: BucketPolicy | None = None,
+                 rows_per_block: int | None = None):
         if layout not in ("auto", "pointer", "symbol"):
             raise ValueError(f"unknown layout policy {layout!r}")
         if device.type != self.device_type:
             raise ValueError(
                 f"impl={self.impl!r} runs on {self.device_type}, not {device}")
+        check_rows_per_block(rows_per_block, model.params.ways)
         self.model = model
         self.packed_lut = packed_lut
         self.luts = luts
         self.device = device
         self.layout = layout
+        self.policy = policy if policy is not None else LEGACY_POLICY
+        self.rows_per_block = rows_per_block
         # Per-layout plan counts (picked up by ServiceStats) and stream
         # upload accounting (picked up by the metrics collectors).  plan()
         # and upload_stream() may run from any thread, so bumps take
@@ -122,37 +138,42 @@ class Executor:
         self._count_layout(layout)
         p = self.model.params
         W = batch.ways
-        s_b = work_bucket(batch.k.shape[0])
-        steps_b = work_bucket(batch.n_steps)
-        out_b = pow2_bucket(n_symbols)
+        s_b = self.policy.work(batch.k.shape[0])
+        steps_b = self.policy.work(batch.n_steps)
+        out_b = self.policy.mem(n_symbols)
         arrs = pad_split_arrays(batch, batch.k.shape[0], self.device)
-        statics = dict(n_bits=p.n_bits, ways=W, n_steps=steps_b)
+        statics = dict(n_bits=p.n_bits, ways=W)
+        rpb = self.rows_per_block
         if layout == "symbol":
             _check_sym_alignment(batch, ds, W)
             # The key keeps the reference's word-width field: 16-bit words
             # on both layouts here.
-            key = (self.impl, layout, self.packed_lut,
-                   p.n_bits, W, s_b, steps_b, ds.sym_bucket, "u16", out_b)
+            key = (self.impl, layout, self.policy.tag, self.packed_lut,
+                   p.n_bits, W, s_b, steps_b, ds.sym_bucket, "u16", out_b,
+                   rpb)
             args = (ds.by_symbol, *self.luts,
                     *(arrs[f] for f in SYMBOL_SPLIT_FIELDS))
         else:
-            key = (self.impl, layout, self.packed_lut,
-                   p.n_bits, W, s_b, steps_b, ds.bucket, "u16", out_b)
+            key = (self.impl, layout, self.policy.tag, self.packed_lut,
+                   p.n_bits, W, s_b, steps_b, ds.bucket, "u16", out_b, rpb)
             args = (ds.words, *self.luts, *(arrs[f] for f in SPLIT_FIELDS))
         return DecodePlan(key=key, args=args, statics=statics,
                           n_symbols=n_symbols, out_bucket=out_b,
                           layout=layout,
-                          covered=kept_windows_tile(batch, n_symbols))
+                          covered=kept_windows_tile(batch, n_symbols),
+                          n_steps=batch.n_steps)
 
     def lower(self, plan: DecodePlan):
         """The launcher for this plan's key: the layout's wrapper bound to
-        the plan's scalar arguments."""
+        the plan's shared scalar arguments and the block size."""
         fn = (walk_decode_symbol if plan.layout == "symbol"
               else walk_decode_pointer)
-        return functools.partial(fn, **plan.statics)
+        return functools.partial(fn, **plan.statics,
+                                 rows_per_block=self.rows_per_block)
 
     def run(self, fn, plan: DecodePlan) -> torch.Tensor:
-        res = fn(*plan.args, n_symbols=plan.n_symbols, covered=plan.covered)
+        res = fn(*plan.args, n_steps=plan.n_steps, n_symbols=plan.n_symbols,
+                 covered=plan.covered)
         return res if plan.layout == "symbol" else res[0]
 
 
@@ -189,9 +210,12 @@ class CudaExecutor(Executor):
 
 def make_executor(impl: str, model: StaticModel, packed_lut: bool,
                   luts: tuple, device: torch.device, *,
-                  layout: str = "auto") -> Executor:
+                  layout: str = "auto", policy: BucketPolicy | None = None,
+                  rows_per_block: int | None = None) -> Executor:
     if impl == "cuda":
-        return CudaExecutor(model, packed_lut, luts, device, layout)
+        return CudaExecutor(model, packed_lut, luts, device, layout, policy,
+                            rows_per_block)
     if impl == "torch":
-        return TorchExecutor(model, packed_lut, luts, device, layout)
+        return TorchExecutor(model, packed_lut, luts, device, layout, policy,
+                             rows_per_block)
     raise ValueError(f"unknown impl {impl!r}")

@@ -13,19 +13,21 @@ A :class:`DecodePlan` captures everything the launch needs:
   * ``args``     — the positional argument tuple (the resident stream at
                    its bucket, the request's real split rows), placed on
                    the session's device;
-  * ``statics``  — the launch's scalar arguments (``n_steps`` at its
-                   *bucketed* value etc.), bound once per key;
-  * ``n_symbols``, ``covered`` — the real output length and whether the
-                   kept windows tile it; the executor passes them at run
-                   time, since plans of one key share one launcher.
+  * ``statics``  — the launch's scalar arguments that every plan of the
+                   key shares (``n_bits``, ``ways``), bound once per key;
+  * ``n_steps``, ``n_symbols``, ``covered`` — the request's real walk
+                   depth, output length and whether the kept windows tile
+                   the output; the executor passes them at run time, since
+                   plans of one key share one launcher.
 
-Bucketing policy: memory-dominant dims pad to powers of two
-(:func:`pow2_bucket`), compute-dominant dims to powers of two and their
-1.5x midpoints (:func:`work_bucket`).  The buckets join the key; the
-launch pads only the walk's steps and the resident stream, and that padding
-is inert by construction — extra steps walk groups below every ``stop``,
-extra stream words are never indexed.  Split rows and the output keep
-their real sizes.
+Bucketing policy: a pluggable :class:`BucketPolicy` pads memory-dominant
+dims through ``policy.mem`` and compute-dominant dims through
+``policy.work``; the default :data:`LEGACY_POLICY` is powers of two
+(:func:`pow2_bucket`) and powers of two with their 1.5x midpoints
+(:func:`work_bucket`).  The buckets and ``policy.tag`` join the key; only
+the resident stream is padded (to its pow2 bucket, whatever the policy),
+and that padding is inert by construction — extra stream words are never
+indexed.  Split rows, walk steps and the output keep their real sizes.
 
 :func:`concat_walk_batches` is the microbatch fusion primitive: N requests'
 WalkBatches become one batch whose per-request rows write disjoint output
@@ -36,7 +38,9 @@ fused stream, when requests target different contents).
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
+import hashlib
 from typing import Sequence
 
 import numpy as np
@@ -63,6 +67,115 @@ def work_bucket(n: int, floor: int = 1) -> int:
     if n <= p + p // 2:
         return p + p // 2
     return 2 * p
+
+
+# ---------------------------------------------------------------------------
+# Bucket policies: the ladder is pluggable
+# ---------------------------------------------------------------------------
+
+class BucketPolicy:
+    """Pluggable bucket ladder for plan-cache shape quantization.
+
+    An executor asks its policy for two kinds of buckets: ``work(n)`` for
+    compute-dominant dims (walk steps, split rows, encode groups) and
+    ``mem(n)`` for memory-dominant dims (output slots).  Contract, relied
+    on by every executor and property-tested in
+    ``tests/test_torch_tuning.py``:
+
+      * **coverage** — ``work(n, floor) >= max(n, floor, 1)`` (same for
+        ``mem``): padding never truncates;
+      * **monotone** — ``n1 <= n2`` implies ``bucket(n1) <= bucket(n2)``;
+      * **idempotent** — ``bucket(bucket(n)) == bucket(n)``: bucket values
+        are fixpoints, so re-bucketing a padded dim is a no-op;
+      * **pure** — the result depends only on ``(n, floor)``; two requests
+        with equal dims always share one launcher.
+
+    ``tag`` joins every plan-cache key, so two policies that happen to
+    agree on some bucket values still never alias one session's launchers
+    against another ladder's bucket assumptions.
+    """
+
+    tag: str = "?"
+
+    def work(self, n: int, floor: int = 1) -> int:
+        raise NotImplementedError
+
+    def mem(self, n: int, floor: int = 1) -> int:
+        raise NotImplementedError
+
+
+class LegacyBucketPolicy(BucketPolicy):
+    """The hand-picked seed ladder: pow2 memory dims, pow2 + 1.5x-midpoint
+    work dims.  The default wherever no tuned profile is supplied —
+    behaviorally identical to the pre-policy engine."""
+
+    tag = "legacy"
+
+    def work(self, n: int, floor: int = 1) -> int:
+        return work_bucket(n, floor)
+
+    def mem(self, n: int, floor: int = 1) -> int:
+        return pow2_bucket(n, floor)
+
+
+class LadderBucketPolicy(BucketPolicy):
+    """Explicit-breakpoint ladder (tuned profiles, ``core.tuning``).
+
+    ``work_ladder`` / ``mem_ladder`` are ascending rung values; a request
+    dim buckets to the smallest rung >= it.  Above the top rung the policy
+    falls back to the legacy ladder (clamped >= the top rung, so the
+    boundary stays monotone); an empty ``mem_ladder`` keeps memory dims on
+    pure pow2.  ``tag`` defaults to a content hash of both ladders, so the
+    plan-cache key pins the exact ladder that shaped the plan.
+    """
+
+    def __init__(self, work_ladder: Sequence[int],
+                 mem_ladder: Sequence[int] = (), tag: str | None = None):
+        self.work_ladder = tuple(sorted({int(v) for v in work_ladder}))
+        self.mem_ladder = tuple(sorted({int(v) for v in mem_ladder}))
+        if not self.work_ladder:
+            raise ValueError("work_ladder needs at least one rung")
+        for ladder in (self.work_ladder, self.mem_ladder):
+            if ladder and ladder[0] < 1:
+                raise ValueError(f"ladder rungs must be >= 1, got {ladder}")
+        if tag is None:
+            digest = hashlib.sha1(
+                repr((self.work_ladder, self.mem_ladder)).encode()
+            ).hexdigest()[:10]
+            tag = f"ladder:{digest}"
+        self.tag = tag
+
+    @staticmethod
+    def _bucket(ladder: tuple, n: int, floor: int, fallback) -> int:
+        n = max(int(n), int(floor), 1)
+        if ladder and n <= ladder[-1]:
+            return ladder[bisect.bisect_left(ladder, n)]
+        v = fallback(n)
+        return max(v, ladder[-1]) if ladder else v
+
+    def work(self, n: int, floor: int = 1) -> int:
+        return self._bucket(self.work_ladder, n, floor, work_bucket)
+
+    def mem(self, n: int, floor: int = 1) -> int:
+        return self._bucket(self.mem_ladder, n, floor, pow2_bucket)
+
+
+def legacy_rungs(lo: int, hi: int) -> list[int]:
+    """Every legacy work rung (2^k and 1.5 * 2^k) in ``[lo, hi]`` — the
+    base a tuned ladder unions with its measured breakpoints so dims the
+    tuner never observed keep seed-ladder padding."""
+    out, p = [], 1
+    while p <= hi:
+        for v in (p, p + p // 2):
+            if lo <= v <= hi and v not in out[-2:]:
+                out.append(v)
+        p *= 2
+    return out
+
+
+#: Shared default: module-level so "no policy" means ONE policy object (and
+#: one tag) everywhere, not per-session lookalikes.
+LEGACY_POLICY = LegacyBucketPolicy()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +219,7 @@ class DecodePlan:
     out_bucket: int
     layout: str = "pointer"   # "pointer" or "symbol"; joins the key
     covered: bool = False     # kept windows tile [0, n_symbols)
+    n_steps: int = 0          # the request's real walk depth
 
 
 SPLIT_FIELDS = ("k", "y", "x0", "q0", "g_hi", "start", "stop",

@@ -67,6 +67,24 @@ class DecoderSession:
     ``words_by_symbol`` permutation and the classic pointer walk otherwise;
     ``"pointer"``/``"symbol"`` force one layout.
 
+    ``policy`` is the bucket-ladder policy: ``None`` (default) keeps the
+    legacy pow2/midpoint ladder unless the ``REPRO_TUNING_DB`` environment
+    variable points at a tuning database; ``"tuned"`` resolves the best
+    persisted profile for this backend (``cuda:cuda:<layout>`` on the card,
+    ``cpu:torch:<layout>`` on the CPU: env var, then user cache, then the
+    committed CPU defaults); ``"legacy"`` forces the hand-picked ladder; a
+    :class:`~repro_torch.core.engine.plan.BucketPolicy` or a tuning
+    :class:`~repro_torch.core.tuning.Profile` is used directly.
+    ``policy.tag`` joins every plan key, so ladders never alias.
+    :attr:`tuning_profile` is the profile it came from (None otherwise); as
+    in the reference, the profile's own ``rows_per_block`` is recorded there
+    and not applied.
+
+    ``rows_per_block`` is the walk kernels' block size in warps (``None`` =
+    128 threads; see
+    :func:`~repro_torch.kernels.rans_decode.rans_decode.check_rows_per_block`);
+    it joins every plan key.
+
     ``profiler`` is an injected per-plan-key timer (duck-typed — see
     ``repro_torch.runtime.observability.ExecProfiler``; core never imports
     runtime).  None keeps :meth:`execute` free of timing branches.
@@ -74,6 +92,7 @@ class DecoderSession:
 
     def __init__(self, model: StaticModel, *, device="cuda", impl=None,
                  packed_lut: bool | None = None, layout: str = "auto",
+                 policy=None, rows_per_block: int | None = None,
                  profiler=None):
         from ...kernels.rans_decode.ops import _luts, packed_lut_ok
         self.device = resolve_device(device)
@@ -89,10 +108,16 @@ class DecoderSession:
         elif packed_lut and not packed_lut_ok(model):
             raise ValueError("packed LUT requires 8-bit symbols and n <= 12")
         self.packed_lut = packed_lut
+        # Lazy import: tuning sits above plan/executors in the layer order,
+        # so the session resolves policies at construction time only.
+        from ..tuning import resolve_policy
+        self.policy, self.tuning_profile = resolve_policy(
+            policy, impl=own, layout=layout)
         # Device-resident slot tables, uploaded once.
         self._luts = _luts(model, packed_lut, self.device)
-        self.executor = make_executor(own, model, packed_lut, self._luts,
-                                      self.device, layout=layout)
+        self.executor = make_executor(
+            own, model, packed_lut, self._luts, self.device, layout=layout,
+            policy=self.policy, rows_per_block=rows_per_block)
         self._exec: dict[tuple, object] = {}
         self._lock = threading.Lock()   # guards _exec + stats (see header)
         self.stats = EngineStats()

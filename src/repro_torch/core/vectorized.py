@@ -11,7 +11,9 @@ the ballot).
 The walks here are the *plain* versions of those kernels: a Python loop
 over steps, batched over splits x lanes, on whatever device the tensors lie
 on.  The kernel wrappers take them for CPU tensors; the tests hold them
-against the JAX reference walks.
+against the JAX reference walks.  Adaptive models (per-context tables keyed
+by the walk index, ``ctx_model=``) run here only, on host tensors: neither
+walk kernel handles them, as no reference executor passes a context map.
 
 Unsigned 32-bit states: rANS states are u32 with the top bit live.  Every
 tensor that crosses a function boundary holds them as int32 bit patterns
@@ -41,9 +43,13 @@ B_BITS = 16
 # Encode (host-side group-stepped loop, W lanes)
 # ---------------------------------------------------------------------------
 
-def encode_interleaved_fast(symbols: np.ndarray,
-                            model: StaticModel) -> EncodedStream:
+def encode_interleaved_fast(symbols: np.ndarray, model: StaticModel,
+                            ctx=None, ctx_f=None, ctx_F=None) -> EncodedStream:
     """Bit-exact drop-in for :func:`repro_torch.core.interleaved.encode_interleaved`.
+
+    With (ctx, ctx_f, ctx_F) provided, encodes with per-index distributions
+    (adaptive coding): symbol ``i`` takes row ``ctx[i]`` of the ``[C, A]``
+    tables — a drop-in for ``adaptive.encode_interleaved_adaptive``.
 
     This encoder runs on the host on purpose.  Each way's state chain is
     sequential, so the encode has only W lanes of parallelism per step and
@@ -55,22 +61,30 @@ def encode_interleaved_fast(symbols: np.ndarray,
     words land in row-major (group, lane) order, which is exactly the
     oracle's emission order.
     """
+    if model is None:
+        raise ValueError("model required (pass a StaticModel; adaptive uses "
+                         "encode_adaptive_fast)")
     p = model.params
     W = p.ways
     syms = np.asarray(symbols, dtype=np.int64).ravel()
     N = len(syms)
-    f_tab = model.f.astype(np.int64)
-    F_tab = model.F.astype(np.int64)
-    if N and np.any(f_tab[syms] == 0):
-        bad = int(syms[np.flatnonzero(f_tab[syms] == 0)[0]])
+    if ctx is None:
+        f_sym = model.f.astype(np.int64)[syms]
+        F_sym = model.F.astype(np.int64)[syms]
+    else:
+        c = np.asarray(ctx, np.int64).ravel()[:N]
+        f_sym = np.asarray(ctx_f, np.int64)[c, syms]
+        F_sym = np.asarray(ctx_F, np.int64)[c, syms]
+    if N and np.any(f_sym == 0):
+        bad = int(syms[np.flatnonzero(f_sym == 0)[0]])
         raise ValueError(f"symbol {bad} has zero quantized frequency")
     G = -(-N // W) if N else 0
     pad = G * W - N
     # Padding lanes of the last group carry f = 2^n, F = 0, which neither
     # renormalizes (x < 2^32) nor moves the state: their final state stays
     # the last real one, as in the oracle.
-    fs = np.concatenate([f_tab[syms], np.full(pad, p.scale, np.int64)])
-    Fs = np.concatenate([F_tab[syms], np.zeros(pad, np.int64)])
+    fs = np.concatenate([f_sym, np.full(pad, p.scale, np.int64)])
+    Fs = np.concatenate([F_sym, np.zeros(pad, np.int64)])
     fs = fs.reshape(G, W)
     gain = p.scale - fs              # x' = x + (x // f) * (2^n - f) + F
     Fs = Fs.reshape(G, W)
@@ -92,6 +106,18 @@ def encode_interleaved_fast(symbols: np.ndarray,
         n_symbols=N, params=p,
         k_of_word=sel.astype(np.int64),
         y_of_word=(emitted >> B_BITS).astype(np.uint32))
+
+
+def encode_adaptive_fast(symbols: np.ndarray, ctx_model) -> EncodedStream:
+    """Host group-stepped adaptive encoder (bit-exact vs the python
+    oracle ``adaptive.encode_interleaved_adaptive``)."""
+    return encode_interleaved_fast(
+        symbols,
+        StaticModel(f=ctx_model.f[0], F=ctx_model.F[0],
+                    params=ctx_model.params),
+        ctx=ctx_model.ctx,
+        ctx_f=ctx_model.f.astype(np.int32),
+        ctx_F=ctx_model.F.astype(np.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -185,17 +211,24 @@ def _u32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _slot_decode(sym_lut: torch.Tensor, f_lut: torch.Tensor | None,
-                 F_lut: torch.Tensor | None, slot: torch.Tensor):
-    """slot -> (symbol, f, F) as int64 under the two static table layouts:
-    the §4.4 packed single-int32 word (one gather, bitwise unpack) or the
-    three split tables.  Shared by the pointer and symbol-layout walks so
-    the bit layout lives in ONE place on the torch side (the kernels' twin
-    is ``slot_decode`` in ``csrc/rans_walk.cu``)."""
-    if f_lut is None:
+                 F_lut: torch.Tensor | None, slot: torch.Tensor,
+                 i: torch.Tensor, ctx_of_index: torch.Tensor | None):
+    """slot -> (symbol, f, F) as int64 under the three table layouts: the
+    §4.4 packed single-int32 word (one gather, bitwise unpack), the three
+    split static tables, or adaptive per-context ``[C, 2^n]`` tables keyed
+    by the walk index ``i`` (``ctx_of_index[i]`` picks the row).  Shared by
+    the pointer and symbol-layout walks so the bit layout lives in ONE
+    place on the torch side (the kernels' twin, static tables only, is
+    ``slot_decode`` in ``csrc/rans_walk.cu``)."""
+    if ctx_of_index is None and f_lut is None:
         packed = _u32(sym_lut[slot])
         return packed & 0xFF, (packed >> 8) & 0xFFF, (packed >> 20) & 0xFFF
-    return (sym_lut[slot].to(torch.int64), f_lut[slot].to(torch.int64),
-            F_lut[slot].to(torch.int64))
+    if ctx_of_index is None:
+        return (sym_lut[slot].to(torch.int64), f_lut[slot].to(torch.int64),
+                F_lut[slot].to(torch.int64))
+    c = ctx_of_index[i.clamp(0, ctx_of_index.shape[0] - 1)].to(torch.int64)
+    return (sym_lut[c, slot].to(torch.int64),
+            f_lut[c, slot].to(torch.int64), F_lut[c, slot].to(torch.int64))
 
 
 def _scatter_kept(syms: torch.Tensor, keeps: torch.Tensor,
@@ -224,7 +257,7 @@ def _split_columns(g_hi, start, stop, keep_lo, keep_hi):
 
 def _walk_pointer_tiles(stream, sym_lut, f_lut, F_lut, k, y, x0, q0, g_hi,
                         start, stop, keep_lo, keep_hi, *, n_bits: int,
-                        ways: int, n_steps: int):
+                        ways: int, n_steps: int, ctx_of_index=None):
     """Plain pointer-layout walk over every split at once.
 
     Returns ``(syms int64[S, T, W], keeps bool[S, T, W], qf int64[S])``:
@@ -238,6 +271,7 @@ def _walk_pointer_tiles(stream, sym_lut, f_lut, F_lut, k, y, x0, q0, g_hi,
 
     and lane j's word index is ``q`` minus the reads of higher lanes in its
     split (decode order is descending lane within a group).
+    ``ctx_of_index`` (int32[N]) selects adaptive per-context tables.
     """
     dev = k.device
     S, W = k.shape
@@ -260,7 +294,8 @@ def _walk_pointer_tiles(stream, sym_lut, f_lut, F_lut, k, y, x0, q0, g_hi,
         recon = active & (i == k)
         dec = active & (i < k)
         slot = x & slot_mask
-        s, fs, Fs = _slot_decode(sym_lut, f_lut, F_lut, slot)
+        s, fs, Fs = _slot_decode(sym_lut, f_lut, F_lut, slot, i,
+                                 ctx_of_index)
         x_dec = (fs * (x >> n_bits) + (slot - Fs)) & MASK32
         under = x_dec < L_BOUND
         rd = (recon | (dec & under)).to(torch.int64)
@@ -278,13 +313,14 @@ def _walk_pointer_tiles(stream, sym_lut, f_lut, F_lut, k, y, x0, q0, g_hi,
 
 def _walk_batch_impl(stream, sym_lut, f_lut, F_lut, k, y, x0, q0, g_hi, start,
                      stop, keep_lo, keep_hi, out_base, *, n_bits, ways,
-                     n_steps, n_symbols):
+                     n_steps, n_symbols, ctx_of_index=None):
     """Plain pointer-layout decode: walk + closed-form scatter.  Returns
     ``(out int32[n_symbols], qf int32[S])``; the argument order is the
     plan's (``engine.plan.SPLIT_FIELDS``)."""
     syms, keeps, qf = _walk_pointer_tiles(
         stream, sym_lut, f_lut, F_lut, k, y, x0, q0, g_hi, start, stop,
-        keep_lo, keep_hi, n_bits=n_bits, ways=ways, n_steps=n_steps)
+        keep_lo, keep_hi, n_bits=n_bits, ways=ways, n_steps=n_steps,
+        ctx_of_index=ctx_of_index)
     out = _scatter_kept(syms, keeps, g_hi, out_base, ways=ways,
                         n_steps=n_steps, n_symbols=n_symbols)
     return out, qf.to(torch.int32)
@@ -325,7 +361,7 @@ def words_by_symbol_host(stream: np.ndarray, k_of_word: np.ndarray,
 
 def _walk_symbol_tiles(by_symbol, sym_lut, f_lut, F_lut, k, y, x0, sym_base,
                        g_hi, start, stop, keep_lo, keep_hi, *, n_bits: int,
-                       ways: int, n_steps: int):
+                       ways: int, n_steps: int, ctx_of_index=None):
     """Plain pointer-free walk over every split at once; returns
     ``(syms int64[S, T, W], keeps bool[S, T, W])``.
 
@@ -359,7 +395,8 @@ def _walk_symbol_tiles(by_symbol, sym_lut, f_lut, F_lut, k, y, x0, sym_base,
         recon = active & (i == k)
         dec = active & (i < k)
         slot = x & slot_mask
-        s, fs, Fs = _slot_decode(sym_lut, f_lut, F_lut, slot)
+        s, fs, Fs = _slot_decode(sym_lut, f_lut, F_lut, slot, i,
+                                 ctx_of_index)
         x_dec = (fs * (x >> n_bits) + (slot - Fs)) & MASK32
         under = x_dec < L_BOUND
         row = (row0 - t).clamp(0, n_groups - 1)
@@ -374,13 +411,15 @@ def _walk_symbol_tiles(by_symbol, sym_lut, f_lut, F_lut, k, y, x0, sym_base,
 
 def _walk_batch_symbol_impl(by_symbol, sym_lut, f_lut, F_lut, k, y, x0,
                             sym_base, g_hi, start, stop, keep_lo, keep_hi,
-                            out_base, *, n_bits, ways, n_steps, n_symbols):
+                            out_base, *, n_bits, ways, n_steps, n_symbols,
+                            ctx_of_index=None):
     """Plain symbol-layout decode: walk + closed-form scatter.  Returns
     int32[n_symbols]; the argument order is the plan's
     (``engine.plan.SYMBOL_SPLIT_FIELDS``)."""
     syms, keeps = _walk_symbol_tiles(
         by_symbol, sym_lut, f_lut, F_lut, k, y, x0, sym_base, g_hi, start,
-        stop, keep_lo, keep_hi, n_bits=n_bits, ways=ways, n_steps=n_steps)
+        stop, keep_lo, keep_hi, n_bits=n_bits, ways=ways, n_steps=n_steps,
+        ctx_of_index=ctx_of_index)
     return _scatter_kept(syms, keeps, g_hi, out_base, ways=ways,
                          n_steps=n_steps, n_symbols=n_symbols)
 
@@ -404,6 +443,23 @@ def _cpu_luts(model: StaticModel, packed_lut: bool) -> tuple:
                  for a in lut_arrays(model, packed_lut))
 
 
+def _cpu_tables(model: StaticModel, packed_lut: bool, ctx_model) -> tuple:
+    """The walk's slot tables and context map on the CPU: ``(luts,
+    n_bits, ctx_of_index)``.  A ``ctx_model`` (adaptive) gives per-context
+    ``[C, 2^n]`` tables and its int32 context map, and ``model`` is then
+    ignored."""
+    if ctx_model is None:
+        return _cpu_luts(model, packed_lut), model.params.n_bits, None
+    slots = ctx_model.slot_luts()
+    slot_f = np.take_along_axis(ctx_model.f.astype(np.int32), slots, axis=1)
+    slot_F = np.take_along_axis(ctx_model.F[:, :-1].astype(np.int32), slots,
+                                axis=1)
+    luts = tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                 for a in (slots, slot_f, slot_F))
+    return (luts, ctx_model.params.n_bits,
+            torch.from_numpy(ctx_model.ctx.astype(np.int32)))
+
+
 def _checked(out: torch.Tensor, what: str) -> np.ndarray:
     res = out.numpy().astype(np.int64)
     if not (res >= 0).all():
@@ -412,28 +468,33 @@ def _checked(out: torch.Tensor, what: str) -> np.ndarray:
 
 
 def walk_decode_batch(batch: WalkBatch, stream: np.ndarray, model: StaticModel,
-                      n_symbols: int, packed_lut: bool = False) -> np.ndarray:
+                      n_symbols: int, ctx_model=None,
+                      packed_lut: bool = False) -> np.ndarray:
     """Decode all splits with the plain pointer walk on the CPU.
 
-    ``packed_lut`` uses the paper §4.4 single-int32 slot table (n <= 12,
-    8-bit symbols): one gather per step instead of three.
+    ``ctx_model`` switches to adaptive (index-keyed) distributions; pass a
+    :class:`repro_torch.core.adaptive.ContextModel` (then ``model`` is
+    ignored).  ``packed_lut`` uses the paper §4.4 single-int32 slot table
+    (n <= 12, 8-bit symbols): one gather per step instead of three.
     """
     if n_symbols >= 2 ** 31:
         raise ValueError(
             f"n_symbols={n_symbols} exceeds int32 device-scatter indices")
     words = np.ascontiguousarray(stream).astype(np.int32)
+    luts, n_bits, ctx = _cpu_tables(model, packed_lut, ctx_model)
     out, _ = _walk_batch_impl(
-        torch.from_numpy(words), *_cpu_luts(model, packed_lut),
+        torch.from_numpy(words), *luts,
         _cpu(batch.k), _cpu(batch.y), _cpu(batch.x0), _cpu(batch.q0),
         _cpu(batch.g_hi), _cpu(batch.start), _cpu(batch.stop),
         _cpu(batch.keep_lo), _cpu(batch.keep_hi), _cpu(batch.out_base),
-        n_bits=model.params.n_bits, ways=batch.ways, n_steps=batch.n_steps,
-        n_symbols=n_symbols)
+        n_bits=n_bits, ways=batch.ways, n_steps=batch.n_steps,
+        n_symbols=n_symbols, ctx_of_index=ctx)
     return _checked(out, "pointer walk")
 
 
 def walk_decode_batch_symbol(batch: WalkBatch, by_symbol: np.ndarray,
                              model: StaticModel, n_symbols: int,
+                             ctx_model=None,
                              packed_lut: bool = False) -> np.ndarray:
     """Pointer-free decode of all splits on the CPU (symbol-indexed layout).
 
@@ -451,22 +512,23 @@ def walk_decode_batch_symbol(batch: WalkBatch, by_symbol: np.ndarray,
     pad = (-len(wbs)) % batch.ways
     if pad:
         wbs = np.concatenate([wbs, np.zeros(pad, np.uint32)])
+    luts, n_bits, ctx = _cpu_tables(model, packed_lut, ctx_model)
     out = _walk_batch_symbol_impl(
-        _cpu(wbs), *_cpu_luts(model, packed_lut),
+        _cpu(wbs), *luts,
         _cpu(batch.k), _cpu(batch.y), _cpu(batch.x0), _cpu(bases),
         _cpu(batch.g_hi), _cpu(batch.start), _cpu(batch.stop),
         _cpu(batch.keep_lo), _cpu(batch.keep_hi), _cpu(batch.out_base),
-        n_bits=model.params.n_bits, ways=batch.ways, n_steps=batch.n_steps,
-        n_symbols=n_symbols)
+        n_bits=n_bits, ways=batch.ways, n_steps=batch.n_steps,
+        n_symbols=n_symbols, ctx_of_index=ctx)
     return _checked(out, "symbol-layout walk")
 
 
-def decode_recoil_fast(plan, stream, final_states,
-                       model: StaticModel) -> np.ndarray:
+def decode_recoil_fast(plan, stream, final_states, model: StaticModel,
+                       ctx_model=None) -> np.ndarray:
     from .recoil import build_split_states
     splits = build_split_states(plan, final_states)
     batch = WalkBatch.from_splits(splits, plan.ways)
-    return walk_decode_batch(batch, stream, model, plan.n_symbols)
+    return walk_decode_batch(batch, stream, model, plan.n_symbols, ctx_model)
 
 
 def decode_conventional_fast(conv, model: StaticModel) -> np.ndarray:

@@ -11,10 +11,19 @@
 // kept symbol is written straight to its place in the flat output, so the
 // (rows, steps, 128) tile of the TPU version never exists.
 //
-// Thread mapping.  One W-thread segment per split, blockDim = 128, so a
-// block walks 128 / W splits (W a power of two <= 128, a template constant).
-// Thread j of a segment is way j: at step t it handles symbol
-// i = (g_hi - t) * W + j.
+// Thread mapping.  One W-thread segment per split, blockDim = BLOCK, so a
+// block walks BLOCK / W splits (W a power of two <= 128 and BLOCK a power of
+// two in [max(W, 32), 1024], both template constants).  Thread j of a
+// segment is way j: at step t it handles symbol i = (g_hi - t) * W + j.
+//
+// Block size.  The Pallas kernels take rows_per_block, the 128-lane vector
+// rows of one grid step.  Here it counts warps: BLOCK = 32 * rows_per_block
+// threads, each launch picking the instance of its size; the default
+// (rows_per_block = None) is the BLOCK = 128 instance, the one every earlier
+// version of this file compiled.  Each instance has __launch_bounds__(BLOCK),
+// so a larger block never loosens the default's register budget.  Only the
+// grid and the shared memory scale with BLOCK; the per-split arithmetic is
+// the same in every instance.
 //
 //   reconstruct (i == k_j):  x = (y_j << 16) | word
 //   decode      (i <  k_j):  slot = x & (2^n - 1); s, f, F = lut[slot]
@@ -82,7 +91,6 @@
 
 namespace {
 
-constexpr int kBlock = 128;
 constexpr int kRingChunks = 4;
 constexpr uint32_t kLowerBound = 1u << 16;
 
@@ -200,14 +208,14 @@ __device__ __forceinline__ void slot_decode(const int32_t* sym_lut,
 // Starts copying the packed table into shared memory (16-byte pieces, one
 // cp.async group; the caller's first wait and barrier complete it) and
 // returns the table the walk reads.  No-op for three tables.
-template <bool PACKED>
+template <bool PACKED, int BLOCK>
 __device__ __forceinline__ const int32_t* stage_lut(
     const int32_t* __restrict__ sym_lut, int lut_size, int32_t* smem) {
   if constexpr (PACKED) {
     const int pieces = lut_size / 4;
-    for (int e = threadIdx.x; e < pieces; e += kBlock)
+    for (int e = threadIdx.x; e < pieces; e += BLOCK)
       cp_async16(smem + 4 * e, sym_lut + 4 * e, 16);
-    for (int e = pieces * 4 + threadIdx.x; e < lut_size; e += kBlock)
+    for (int e = pieces * 4 + threadIdx.x; e < lut_size; e += BLOCK)
       smem[e] = sym_lut[e];
     cp_async_commit();
     return smem;
@@ -223,8 +231,8 @@ __device__ __forceinline__ int split_steps(int g_hi, int start, int stop,
   return min(n_steps, g_hi - stop / ways + 1);
 }
 
-template <bool PACKED, int W>
-__global__ void __launch_bounds__(kBlock)
+template <bool PACKED, int W, int BLOCK>
+__global__ void __launch_bounds__(BLOCK)
 walk_pointer_kernel(const uint16_t* __restrict__ stream, int n_stream,
                     const int32_t* __restrict__ sym_lut,
                     const int32_t* __restrict__ f_lut,
@@ -235,18 +243,19 @@ walk_pointer_kernel(const uint16_t* __restrict__ stream, int n_stream,
   using Ring = PointerRing<W>;
   constexpr int kWarpsPerSplit = W > 32 ? W / 32 : 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int warp_reads[2][kBlock / 32];
+  __shared__ int warp_reads[2][BLOCK / 32];
   __shared__ int block_steps;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int split = blockIdx.x * (kBlock / W) + tid / W;
+  const int split = blockIdx.x * (BLOCK / W) + tid / W;
   const int j = tid % W;
   const bool live = split < n_rows;
 
   const int32_t* lut =
-      stage_lut<PACKED>(sym_lut, lut_size, reinterpret_cast<int32_t*>(smem));
+      stage_lut<PACKED, BLOCK>(sym_lut, lut_size,
+                               reinterpret_cast<int32_t*>(smem));
   uint16_t* ring = reinterpret_cast<uint16_t*>(
                        smem + align16(PACKED ? lut_size * 4 : 0)) +
                    (tid / W) * Ring::kWords;
@@ -359,8 +368,8 @@ walk_pointer_kernel(const uint16_t* __restrict__ stream, int n_stream,
   if (live && j == 0) qf[split] = q;
 }
 
-template <bool PACKED, int W>
-__global__ void __launch_bounds__(kBlock)
+template <bool PACKED, int W, int BLOCK>
+__global__ void __launch_bounds__(BLOCK)
 walk_symbol_kernel(const uint16_t* __restrict__ perm, int n_perm,
                    const int32_t* __restrict__ sym_lut,
                    const int32_t* __restrict__ f_lut,
@@ -372,12 +381,13 @@ walk_symbol_kernel(const uint16_t* __restrict__ perm, int n_perm,
   __shared__ int block_steps;
 
   const int tid = threadIdx.x;
-  const int split = blockIdx.x * (kBlock / W) + tid / W;
+  const int split = blockIdx.x * (BLOCK / W) + tid / W;
   const int j = tid % W;
   const bool live = split < n_rows;
 
   const int32_t* lut =
-      stage_lut<PACKED>(sym_lut, lut_size, reinterpret_cast<int32_t*>(smem));
+      stage_lut<PACKED, BLOCK>(sym_lut, lut_size,
+                               reinterpret_cast<int32_t*>(smem));
   uint16_t* ring = reinterpret_cast<uint16_t*>(
                        smem + align16(PACKED ? lut_size * 4 : 0)) +
                    (tid / W) * Ring::kWords;
@@ -460,10 +470,24 @@ walk_symbol_kernel(const uint16_t* __restrict__ perm, int n_perm,
   cp_async_wait<0>();
 }
 
-int blocks_for(int n_rows, int ways) {
-  const int per_block = kBlock / ways;
+int blocks_for(int n_rows, int ways, int block) {
+  const int per_block = block / ways;
   return (n_rows + per_block - 1) / per_block;
 }
+
+// A block above 48 KB of dynamic shared memory must opt in (per device, so
+// on every launch that needs it; the default blocks stay below): sized for
+// the largest table the instance can stage.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// Largest slot table staged in shared memory: the packed table, n <= 12.
+constexpr int kMaxLutBytes = 4 << 12;
 
 int lut_bytes(bool packed, int lut_size) {
   return align16(packed ? lut_size * 4 : 0);
@@ -502,48 +526,70 @@ struct Launch {
   cudaStream_t st;
 };
 
-template <bool PACKED, int W>
-void launch_pointer(const Launch& L) {
-  const size_t smem = lut_bytes(PACKED, L.lut_size) +
-                      (kBlock / W) * PointerRing<W>::kWords * sizeof(uint16_t);
-  walk_pointer_kernel<PACKED, W>
-      <<<blocks_for(L.n_rows, W), kBlock, smem, L.st>>>(
-          L.words, L.n_words, L.sym_lut, L.f_lut, L.F_lut, L.lut_size, L.a,
-          L.n_rows, L.n_bits, L.n_steps, L.out, L.n_out, L.qf);
-}
-
-template <bool PACKED, int W>
-void launch_symbol(const Launch& L) {
-  const size_t smem = lut_bytes(PACKED, L.lut_size) +
-                      (kBlock / W) * SymbolRing<W>::kWords * sizeof(uint16_t);
-  walk_symbol_kernel<PACKED, W>
-      <<<blocks_for(L.n_rows, W), kBlock, smem, L.st>>>(
-          L.words, L.n_words, L.sym_lut, L.f_lut, L.F_lut, L.lut_size, L.a,
-          L.n_rows, L.n_bits, L.n_steps, L.out, L.n_out);
-}
-
-// One instance per (table layout, W); false if W is not 8..128.
-template <bool PACKED>
-bool launch_pointer_ways(int ways, const Launch& L) {
-  switch (ways) {
-    case 8: launch_pointer<PACKED, 8>(L); return true;
-    case 16: launch_pointer<PACKED, 16>(L); return true;
-    case 32: launch_pointer<PACKED, 32>(L); return true;
-    case 64: launch_pointer<PACKED, 64>(L); return true;
-    case 128: launch_pointer<PACKED, 128>(L); return true;
-    default: return false;
+// Each launcher returns the error of its launch (0 = launched).
+template <bool PACKED, int W, int BLOCK>
+struct PointerLaunch {
+  static int run(const Launch& L) {
+    constexpr size_t kRing =
+        (BLOCK / W) * PointerRing<W>::kWords * sizeof(uint16_t);
+    const cudaError_t attr = allow_smem(walk_pointer_kernel<PACKED, W, BLOCK>,
+                                        (PACKED ? kMaxLutBytes : 0) + kRing);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    walk_pointer_kernel<PACKED, W, BLOCK>
+        <<<blocks_for(L.n_rows, W, BLOCK), BLOCK,
+           lut_bytes(PACKED, L.lut_size) + kRing, L.st>>>(
+            L.words, L.n_words, L.sym_lut, L.f_lut, L.F_lut, L.lut_size, L.a,
+            L.n_rows, L.n_bits, L.n_steps, L.out, L.n_out, L.qf);
+    return static_cast<int>(cudaGetLastError());
   }
+};
+
+template <bool PACKED, int W, int BLOCK>
+struct SymbolLaunch {
+  static int run(const Launch& L) {
+    constexpr size_t kRing =
+        (BLOCK / W) * SymbolRing<W>::kWords * sizeof(uint16_t);
+    const cudaError_t attr = allow_smem(walk_symbol_kernel<PACKED, W, BLOCK>,
+                                        (PACKED ? kMaxLutBytes : 0) + kRing);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    walk_symbol_kernel<PACKED, W, BLOCK>
+        <<<blocks_for(L.n_rows, W, BLOCK), BLOCK,
+           lut_bytes(PACKED, L.lut_size) + kRing, L.st>>>(
+            L.words, L.n_words, L.sym_lut, L.f_lut, L.F_lut, L.lut_size, L.a,
+            L.n_rows, L.n_bits, L.n_steps, L.out, L.n_out);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// One instance per (table layout, W, block): W 8..128 and blocks of
+// max(W, 32) to 1024 threads, powers of two; anything else is refused.
+template <template <bool, int, int> class Launcher, bool PACKED, int W>
+int launch_block(int block, const Launch& L) {
+  switch (block) {
+    case 32:
+      if constexpr (W <= 32) return Launcher<PACKED, W, 32>::run(L);
+      break;
+    case 64:
+      if constexpr (W <= 64) return Launcher<PACKED, W, 64>::run(L);
+      break;
+    case 128: return Launcher<PACKED, W, 128>::run(L);
+    case 256: return Launcher<PACKED, W, 256>::run(L);
+    case 512: return Launcher<PACKED, W, 512>::run(L);
+    case 1024: return Launcher<PACKED, W, 1024>::run(L);
+    default: break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool PACKED>
-bool launch_symbol_ways(int ways, const Launch& L) {
+template <template <bool, int, int> class Launcher, bool PACKED>
+int launch_ways(int ways, int block, const Launch& L) {
   switch (ways) {
-    case 8: launch_symbol<PACKED, 8>(L); return true;
-    case 16: launch_symbol<PACKED, 16>(L); return true;
-    case 32: launch_symbol<PACKED, 32>(L); return true;
-    case 64: launch_symbol<PACKED, 64>(L); return true;
-    case 128: launch_symbol<PACKED, 128>(L); return true;
-    default: return false;
+    case 8: return launch_block<Launcher, PACKED, 8>(block, L);
+    case 16: return launch_block<Launcher, PACKED, 16>(block, L);
+    case 32: return launch_block<Launcher, PACKED, 32>(block, L);
+    case 64: return launch_block<Launcher, PACKED, 64>(block, L);
+    case 128: return launch_block<Launcher, PACKED, 128>(block, L);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -552,8 +598,10 @@ bool launch_symbol_ways(int ways, const Launch& L) {
 // Plain C launchers, bound from Python with ctypes.  Every pointer is a
 // device pointer; the stream and the permutation are 16-bit words and must
 // be 16-byte aligned, as must the slot tables; f_lut == nullptr selects the
-// packed table.  The grid covers all n_rows splits.  Each returns
-// cudaGetLastError() after its launch (0 = launched).
+// packed table.  The grid covers all n_rows splits in blocks of `block`
+// threads (128 unless the caller chose).  Each returns
+// cudaGetLastError() after its launch (0 = launched), or
+// cudaErrorInvalidValue for a (ways, block) pair with no instance.
 
 extern "C" int rans_walk_pointer(
     const void* stream, int n_stream, const void* sym_lut, const void* f_lut,
@@ -561,7 +609,7 @@ extern "C" int rans_walk_pointer(
     const void* x0, const void* q0, const void* g_hi, const void* start,
     const void* stop, const void* keep_lo, const void* keep_hi,
     const void* out_base, int n_rows, int ways, int n_bits, int n_steps,
-    void* out, int n_out, void* qf, void* cuda_stream) {
+    void* out, int n_out, void* qf, int block, void* cuda_stream) {
   const Launch L{static_cast<const uint16_t*>(stream),
                  n_stream,
                  static_cast<const int32_t*>(sym_lut),
@@ -577,10 +625,9 @@ extern "C" int rans_walk_pointer(
                  n_out,
                  static_cast<int32_t*>(qf),
                  static_cast<cudaStream_t>(cuda_stream)};
-  const bool ok = f_lut == nullptr ? launch_pointer_ways<true>(ways, L)
-                                   : launch_pointer_ways<false>(ways, L);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return f_lut == nullptr
+             ? launch_ways<PointerLaunch, true>(ways, block, L)
+             : launch_ways<PointerLaunch, false>(ways, block, L);
 }
 
 extern "C" int rans_walk_symbol(
@@ -589,7 +636,7 @@ extern "C" int rans_walk_symbol(
     const void* x0, const void* sym_base, const void* g_hi, const void* start,
     const void* stop, const void* keep_lo, const void* keep_hi,
     const void* out_base, int n_rows, int ways, int n_bits, int n_steps,
-    void* out, int n_out, void* cuda_stream) {
+    void* out, int n_out, int block, void* cuda_stream) {
   const Launch L{static_cast<const uint16_t*>(perm),
                  n_perm,
                  static_cast<const int32_t*>(sym_lut),
@@ -605,10 +652,9 @@ extern "C" int rans_walk_symbol(
                  n_out,
                  nullptr,
                  static_cast<cudaStream_t>(cuda_stream)};
-  const bool ok = f_lut == nullptr ? launch_symbol_ways<true>(ways, L)
-                                   : launch_symbol_ways<false>(ways, L);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return f_lut == nullptr
+             ? launch_ways<SymbolLaunch, true>(ways, block, L)
+             : launch_ways<SymbolLaunch, false>(ways, block, L);
 }
 
 extern "C" const char* rans_walk_error_string(int code) {

@@ -17,10 +17,12 @@ Each wrapper takes the tensors of a decode plan (the argument order of
     current stream and bumps its ``launches`` counter — or raises.  There
     is no fallback from the kernel to the plain walk.
 
-The grid covers every split row it is given.  ``covered`` says that the
-kept windows tile the output, so the kernel writes every position and the
-CUDA path allocates it without the ``-1`` fill; the ``fills`` counter
-counts the fills it does run.  The plain walks ignore it and always fill.
+The grid covers every split row it is given, in blocks of
+``32 * rows_per_block`` threads (:func:`check_rows_per_block`).
+``covered`` says that the kept windows tile the output, so the kernel
+writes every position and the CUDA path allocates it without the ``-1``
+fill; the ``fills`` counter counts the fills it does run.  The plain walks
+ignore it and always fill.
 
 u32 values (states) travel as int32 bit patterns; the 16-bit stream words
 and permutation entries travel as int16 bit patterns.
@@ -37,18 +39,20 @@ from ...core.vectorized import _walk_batch_impl, _walk_batch_symbol_impl
 from ..build import CudaLibrary
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rans_walk.cu"
-BLOCK = 128
+BLOCK = 128                      # threads a block when rows_per_block is None
+MAX_WAYS = 128
+ROWS_PER_BLOCK = (1, 2, 4, 8, 16, 32)   # warps a block, 32 to 1024 threads
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rans_walk_pointer.argtypes = [
         p, i, p, p, p, i, p, p, p, p, p, p, p, p, p, p,
-        i, i, i, i, p, i, p, p]
+        i, i, i, i, p, i, p, i, p]
     lib.rans_walk_pointer.restype = i
     lib.rans_walk_symbol.argtypes = [
         p, i, p, p, p, i, p, p, p, p, p, p, p, p, p, p,
-        i, i, i, i, p, i, p]
+        i, i, i, i, p, i, i, p]
     lib.rans_walk_symbol.restype = i
     lib.rans_walk_error_string.argtypes = [i]
     lib.rans_walk_error_string.restype = ctypes.c_char_p
@@ -66,6 +70,32 @@ def reset_counts() -> None:
         fn.fills = 0
 
 
+def check_rows_per_block(rows_per_block, ways: int | None = None) -> int:
+    """The walk kernels' block size in threads for ``rows_per_block``.
+
+    The Pallas kernels' ``rows_per_block`` counts 128-lane vector rows a
+    grid step; here it counts **warps** a block: ``32 * rows_per_block``
+    threads, one of :data:`ROWS_PER_BLOCK` (32 to 1024 threads), holding at
+    least one whole W-thread split (``32 * rows_per_block >= ways``).
+    ``None`` keeps the default block of :data:`BLOCK` = 128 threads, the
+    same instance as ``rows_per_block=4``; the reference tuner's candidates
+    ``(4, 8, 16)`` are 128, 256 and 512 threads.  Anything else raises
+    ``ValueError`` here, on the host, before any launch."""
+    if rows_per_block is None:
+        threads = BLOCK
+    elif isinstance(rows_per_block, bool) or \
+            not isinstance(rows_per_block, int) or \
+            rows_per_block not in ROWS_PER_BLOCK:
+        raise ValueError(f"rows_per_block={rows_per_block!r} must be None or "
+                         f"one of {ROWS_PER_BLOCK} (warps a block)")
+    else:
+        threads = 32 * rows_per_block
+    if ways is not None and threads < ways:
+        raise ValueError(f"rows_per_block={rows_per_block} gives {threads} "
+                         f"threads, fewer than one split of ways={ways}")
+    return threads
+
+
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
@@ -79,8 +109,9 @@ def _check_cuda(named: dict, luts: tuple, *, ways: int, n_bits: int,
     dev = named["k"].device
     if dev.type != "cuda":
         raise ValueError(f"kernel wrappers take CUDA or CPU tensors, got {dev}")
-    if ways < 8 or ways > BLOCK or ways & (ways - 1):
-        raise ValueError(f"ways={ways} must be a power of two in [8, {BLOCK}]")
+    if ways < 8 or ways > MAX_WAYS or ways & (ways - 1):
+        raise ValueError(
+            f"ways={ways} must be a power of two in [8, {MAX_WAYS}]")
     if not 1 <= n_bits <= 16:
         raise ValueError(f"n_bits={n_bits} outside [1, 16]")
     S = named["k"].shape[0]
@@ -140,16 +171,20 @@ def _raise_on(lib, err: int, name: str) -> None:
 def walk_decode_pointer(stream, sym_lut, f_lut, F_lut, k, y, x0, q0, g_hi,
                         start, stop, keep_lo, keep_hi, out_base, *,
                         n_bits: int, ways: int, n_steps: int, n_symbols: int,
-                        covered: bool = False):
+                        covered: bool = False,
+                        rows_per_block: int | None = None):
     """Pointer-layout walk + scatter.  ``stream`` is the 16-bit words as
     int16 (the plain walk also takes int32); ``f_lut = F_lut = None``
-    selects the packed slot table.  Returns ``(out int32[n_symbols],
-    qf int32[S])``: -1 where no symbol was kept (unless ``covered``), and
-    each split's final stream pointer."""
+    selects the packed slot table.  ``rows_per_block`` is the block size in
+    warps (:func:`check_rows_per_block`; the plain walk checks it and
+    ignores it).  Returns ``(out int32[n_symbols], qf int32[S])``: -1 where
+    no symbol was kept (unless ``covered``), and each split's final stream
+    pointer."""
     args = (stream, sym_lut, f_lut, F_lut, k, y, x0, q0, g_hi, start, stop,
             keep_lo, keep_hi, out_base)
     statics = dict(n_bits=n_bits, ways=ways, n_steps=n_steps,
                    n_symbols=n_symbols)
+    block = check_rows_per_block(rows_per_block, ways)
     if stream.device.type == "cpu":
         walk_decode_pointer.plain_calls += 1
         return _walk_batch_impl(*args, **statics)
@@ -169,7 +204,8 @@ def walk_decode_pointer(stream, sym_lut, f_lut, F_lut, k, y, x0, q0, g_hi,
         x0.data_ptr(), q0.data_ptr(), g_hi.data_ptr(), start.data_ptr(),
         stop.data_ptr(), keep_lo.data_ptr(), keep_hi.data_ptr(),
         out_base.data_ptr(), S, ways, n_bits, n_steps, out.data_ptr(),
-        n_symbols, qf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        n_symbols, qf.data_ptr(), block,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "rans_walk_pointer")
     walk_decode_pointer.launches += 1
     return out, qf
@@ -178,7 +214,8 @@ def walk_decode_pointer(stream, sym_lut, f_lut, F_lut, k, y, x0, q0, g_hi,
 def walk_decode_symbol(by_symbol, sym_lut, f_lut, F_lut, k, y, x0, sym_base,
                        g_hi, start, stop, keep_lo, keep_hi, out_base, *,
                        n_bits: int, ways: int, n_steps: int, n_symbols: int,
-                       covered: bool = False):
+                       covered: bool = False,
+                       rows_per_block: int | None = None):
     """Symbol-layout (pointer-free) walk + scatter.  ``by_symbol`` is the
     ``words_by_symbol`` permutation as int16 (u16) bit patterns (the plain
     walk also takes int32), a whole number of W-wide groups.  Returns
@@ -187,6 +224,7 @@ def walk_decode_symbol(by_symbol, sym_lut, f_lut, F_lut, k, y, x0, sym_base,
             stop, keep_lo, keep_hi, out_base)
     statics = dict(n_bits=n_bits, ways=ways, n_steps=n_steps,
                    n_symbols=n_symbols)
+    block = check_rows_per_block(rows_per_block, ways)
     if by_symbol.device.type == "cpu":
         walk_decode_symbol.plain_calls += 1
         return _walk_batch_symbol_impl(*args, **statics)
@@ -206,7 +244,8 @@ def walk_decode_symbol(by_symbol, sym_lut, f_lut, F_lut, k, y, x0, sym_base,
         y.data_ptr(), x0.data_ptr(), sym_base.data_ptr(), g_hi.data_ptr(),
         start.data_ptr(), stop.data_ptr(), keep_lo.data_ptr(),
         keep_hi.data_ptr(), out_base.data_ptr(), S, ways, n_bits, n_steps,
-        out.data_ptr(), n_symbols, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), n_symbols, block,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "rans_walk_symbol")
     walk_decode_symbol.launches += 1
     return out

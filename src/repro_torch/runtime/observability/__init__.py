@@ -29,9 +29,7 @@ port does not have (it never emits them as constant zeros):
     fast/full tier;
   * ``recoil_service_host_materializations_total`` and
     ``recoil_engine_host_materialized_bytes_total`` — streams stay on the
-    card; no executor copies them to the host;
-  * ``recoil_engine_policy_info`` — its ``policy`` label names a bucket
-    policy, and the port has none.
+    card; no executor copies them to the host.
 
 Every other name keeps the reference's type and labels.  The broker
 collector is the reference's: it yields every ``recoil_broker_*`` name (and
@@ -77,6 +75,7 @@ SCHEMA = {
     "recoil_engine_executables": ("gauge", ()),
     "recoil_engine_stream_uploads_total": ("counter", ()),
     "recoil_engine_stream_upload_bytes_total": ("counter", ()),
+    "recoil_engine_policy_info": ("gauge", ("impl", "layout", "policy")),
     # Per-plan-key profiler rollups
     "recoil_profiler_compiles_total": ("counter", ("session",)),
     "recoil_profiler_compile_seconds_total": ("counter", ("session",)),
@@ -232,6 +231,9 @@ def _engine_samples(svc) -> list[dict]:
            getattr(ex, "stream_uploads", 0)),
         _c("recoil_engine_stream_upload_bytes_total",
            getattr(ex, "stream_upload_bytes", 0)),
+        _c("recoil_engine_policy_info", 1,
+           {"impl": ex.impl, "layout": ex.layout,
+            "policy": getattr(ex.policy, "tag", "?")}),
     ]
 
 

@@ -317,6 +317,16 @@ class PipelineBroker:
                  quarantine_after: int = 3, quarantine_s: float = 30.0,
                  degrade_after: int = 2, degraded_probe: int = 4):
         self.svc = svc
+        if controller is None and config is None:
+            # A tuned service quantizes to the profile's measured microbatch
+            # sizes, so warm() resolves exactly the shape set dispatch will
+            # request — no warm-miss launcher resolves under a tuned profile.
+            profile = getattr(svc, "tuning_profile", None)
+            if profile is not None and profile.microbatch_sizes:
+                sizes = tuple(sorted(int(s)
+                                     for s in profile.microbatch_sizes))
+                config = ControllerConfig(max_batch=sizes[-1],
+                                          batch_sizes=sizes)
         self.controller = controller or AdaptiveController(config)
         # Request-level bucketing: a deadline flush of a partial lane (say 3
         # queued) is padded to the next quantized size with ticketless

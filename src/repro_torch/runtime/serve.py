@@ -238,7 +238,9 @@ class DecodeService:
     count (a pure metadata deletion, paper §3.3) and run the cached
     bucketed launch.  ``device`` defaults to ``"cuda"`` (the Hopper
     kernels); pass ``device="cpu"`` for the plain torch walks.  See the
-    module docstring for the two request paths.
+    module docstring for the two request paths.  ``session_kw`` reaches the
+    :class:`DecoderSession` (``layout``, ``policy``, ``rows_per_block``,
+    ``packed_lut``).
 
     ``observe=False`` turns the instrumentation off (:data:`NULL_TRACE`
     everywhere, no profiler timing branches; the pull metrics remain).
@@ -427,9 +429,14 @@ class DecodeService:
     def _encode_session(self) -> EncoderSession:
         with self._lock:
             if self._encoder is None:
-                self._encoder = EncoderSession(self.session.model,
-                                               device=self.session.device,
-                                               profiler=self.obs.profiler)
+                # A service opted into tuning opts its ingest engine in too
+                # (the encoder resolves its OWN profile key — decode
+                # ladders never apply to encode group counts).
+                self._encoder = EncoderSession(
+                    self.session.model, device=self.session.device,
+                    policy="tuned" if self.session.tuning_profile is not None
+                    else None,
+                    profiler=self.obs.profiler)
             return self._encoder
 
     # ------------------------------------------------------------------
@@ -864,6 +871,14 @@ class DecodeService:
     @property
     def broker(self):
         return self._broker
+
+    @property
+    def tuning_profile(self):
+        """The tuned :class:`~repro_torch.core.tuning.Profile` the decode
+        session resolved (None = legacy ladder).  The pipeline broker reads
+        the profile's microbatch quantization sizes so the warmed shape set
+        matches what dispatch actually requests."""
+        return self.session.tuning_profile
 
     def metrics(self) -> dict:
         """The unified metrics snapshot (native instruments + every

@@ -175,6 +175,104 @@ def test_wrapper_rejects_bad_tensors(cuda_device):
         walk_decode_pointer(*bad, **statics)
 
 
+@pytest.mark.parametrize("ways", [8, 16, 32, 64, 128])
+@in_child
+def test_kernels_at_every_rows_per_block_equal_plain(cuda_device, ways):
+    """Both walks at every block size their W allows (``rows_per_block``
+    warps, at least one whole split a block) equal the plain walks and the
+    default launch, on split counts that leave the last block partly
+    filled (and one split alone in a block), both slot tables."""
+    import torch
+    from repro_torch.core.engine import (SPLIT_FIELDS, SYMBOL_SPLIT_FIELDS,
+                                         pad_split_arrays)
+    from repro_torch.core.vectorized import (_walk_batch_impl,
+                                             _walk_batch_symbol_impl,
+                                             words_by_symbol_host)
+    from repro_torch.kernels.rans_decode.ops import _luts, packed_lut_ok
+    from repro_torch.kernels.rans_decode.rans_decode import (
+        ROWS_PER_BLOCK, walk_decode_pointer, walk_decode_symbol)
+    dev = cuda_device
+    allowed = [r for r in ROWS_PER_BLOCK if 32 * r >= ways]
+    launched = 0
+    for n_splits in (1, 37, 261):
+        syms, model, enc, batch = _content(ways * 3 + n_splits, 30_000,
+                                           ways, 11, n_splits)
+        n = len(syms)
+        S = batch.k.shape[0]
+        arrs = pad_split_arrays(batch, S, dev)
+        st = dict(n_bits=11, ways=ways, n_steps=batch.n_steps, n_symbols=n)
+        words = _int16(enc.stream, dev)
+        wbs = words_by_symbol_host(enc.stream, enc.k_of_word, n)
+        by = _int16(wbs, dev, (-n) % ways)
+        for packed in sorted({False, packed_lut_ok(model)}):
+            luts = _luts(model, packed, dev)
+            pa = (words, *luts, *(arrs[f] for f in SPLIT_FIELDS))
+            sa = (by, *luts, *(arrs[f] for f in SYMBOL_SPLIT_FIELDS))
+            ref_out, ref_qf = _walk_batch_impl(*pa, **st)
+            ref_sym = _walk_batch_symbol_impl(*sa, **st)
+            base_out, base_qf = walk_decode_pointer(*pa, **st)
+            base_sym = walk_decode_symbol(*sa, **st)
+            for rpb in allowed:
+                out, qf = walk_decode_pointer(*pa, **st, rows_per_block=rpb)
+                sym = walk_decode_symbol(*sa, **st, rows_per_block=rpb)
+                torch.cuda.synchronize()
+                assert torch.equal(out, ref_out), (rpb, n_splits, packed)
+                assert torch.equal(qf, ref_qf), (rpb, n_splits, packed)
+                assert torch.equal(sym, ref_sym), (rpb, n_splits, packed)
+                assert torch.equal(out, base_out) and \
+                    torch.equal(qf, base_qf) and torch.equal(sym, base_sym)
+                launched += 1
+            assert (ref_out.cpu().numpy() == syms).all()
+    assert launched >= 3 * len(allowed)
+
+
+@in_child
+def test_bad_rows_per_block_raises_before_any_launch(cuda_device):
+    import torch
+    from repro_torch.core.engine import (DecoderSession, SPLIT_FIELDS,
+                                         pad_split_arrays)
+    from repro_torch.kernels.rans_decode import rans_decode as rd
+    from repro_torch.kernels.rans_decode.ops import _luts
+    syms, model, enc, batch = _content(2, 4_000, 64, 11, 5)
+    arrs = pad_split_arrays(batch, batch.k.shape[0], cuda_device)
+    args = [_int16(enc.stream, cuda_device), *_luts(model, True, cuda_device),
+            *(arrs[f] for f in SPLIT_FIELDS)]
+    statics = dict(n_bits=11, ways=64, n_steps=batch.n_steps,
+                   n_symbols=len(syms))
+    rd.reset_counts()
+    for bad in (0, 3, 64, -4, True, 8.0, "8", 1):   # 1 warp < one W=64 split
+        with pytest.raises(ValueError, match="rows_per_block"):
+            rd.walk_decode_pointer(*args, **statics, rows_per_block=bad)
+        with pytest.raises(ValueError, match="rows_per_block"):
+            DecoderSession(model, device=cuda_device, rows_per_block=bad)
+    torch.cuda.synchronize()
+    assert rd.walk_decode_pointer.launches == 0
+    assert rd.walk_decode_symbol.launches == 0
+
+
+@in_child
+def test_autotuner_on_the_card_writes_a_cuda_profile(cuda_device, tmp_path,
+                                                     monkeypatch):
+    from repro_torch.core.tuning import Autotuner, TuningDB
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    db_path = tmp_path / "tuning.json"
+    kw = dict(device=cuda_device, repeats=3, max_probes=3, n_splits=64)
+    t1 = Autotuner(**kw)
+    prof = t1.tune([20_000, 60_000], db_path=db_path, max_batch=4)
+    assert t1.measurements > 0 and prof.measurements == t1.measurements
+    assert prof.key == "cuda:cuda:auto"
+    assert TuningDB.load(db_path).get("cuda:cuda:auto") == prof
+    sweep = prof.meta["rows_per_block_sweep"]
+    assert sweep["timed"] is True
+    assert {k: v["valid"] for k, v in sweep["candidates"].items()} == \
+        {"4": True, "8": True, "16": True}
+    assert prof.rows_per_block in (4, 8, 16)
+    t2 = Autotuner(**kw)
+    assert t2.tune([20_000, 60_000], db_path=db_path, max_batch=4) == prof
+    assert t2.measurements == 0
+    assert not (tmp_path / "cache").exists()
+
+
 @in_child
 def test_service_decodes_through_the_kernels(cuda_device):
     """Both layouts through DecodeService on the card: outputs equal the

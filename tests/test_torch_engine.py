@@ -318,3 +318,56 @@ def test_plans_of_one_key_decode_their_own_sizes():
     assert plans[0].statics == plans[1].statics
     assert ts.stats.snapshot() == js.stats.snapshot()
     assert (ts.stats.compiles, ts.stats.cache_hits) == (1, 1)
+
+
+@pytest.mark.parametrize("layout", ["pointer", "symbol"])
+@in_child
+def test_walk_runs_its_real_steps_not_the_bucket(layout, monkeypatch):
+    """The plan key carries the policy's steps bucket, as the reference's
+    does, but the launch walks the request's real step count: at a step
+    count just above a rung (bucketed to the next rung) the plain walk runs
+    exactly the steps the splits need, and the output equals the
+    reference's and the symbols."""
+    from repro.core.engine.plan import LadderBucketPolicy as JLadder
+    from repro_torch.core import convert
+    from repro_torch.core.engine import (DecoderSession, LadderBucketPolicy,
+                                         with_symbol_layout)
+    from repro_torch.kernels.rans_decode import rans_decode as rd
+    rng = np.random.default_rng(31)
+    n = 7_001
+    syms = np.minimum(rng.exponential(40.0, size=n).astype(np.int64), 255)
+    jm = _model(32)
+    enc = j_encode(syms, jm)
+    rp = j_recoil.plan_splits(enc, 6)
+    jb = JBatch.from_splits(j_recoil.build_split_states(rp, enc.final_states),
+                            32)
+    tb = convert.batch_from_arrays(convert.batch_arrays(jb), jb.n_steps,
+                                   jb.ways)
+    steps = jb.n_steps
+    ladder = (1, steps - 1, steps + 50, 1 << 20)      # steps is just above
+    walked = []
+    for name in ("_walk_batch_impl", "_walk_batch_symbol_impl"):
+        plain = getattr(rd, name)
+
+        def record(*a, _plain=plain, **kw):
+            walked.append(kw["n_steps"])
+            return _plain(*a, **kw)
+        monkeypatch.setattr(rd, name, record)
+    js = JSession(jm, impl="jnp", layout=layout, policy=JLadder(ladder))
+    ts = DecoderSession(_port_model(jm), device="cpu", layout=layout,
+                        policy=LadderBucketPolicy(ladder))
+    jds, tds = js.upload_stream(enc.stream), ts.upload_stream(enc.stream)
+    if layout == "symbol":
+        jds = j_with_symbol_layout(jds, enc.k_of_word, n)
+        tds = with_symbol_layout(tds, enc.k_of_word, n)
+    jplan = js.prepare(jb, jds, n)
+    tplan = ts.prepare(tb, tds, n)
+    out = ts.execute(tplan).numpy()
+    np.testing.assert_array_equal(out, syms)
+    np.testing.assert_array_equal(out, np.asarray(js.execute(jplan)))
+    assert walked == [steps] and tplan.n_steps == steps
+    assert jplan.statics["n_steps"] == steps + 50       # the bucket
+    # The key's buckets are the reference's, steps bucket included.
+    assert tplan.key[:3] == ("torch", layout, jplan.key[2])
+    assert tplan.key[3:8] == jplan.key[3:8]
+    assert tplan.key[7] == steps + 50

@@ -286,24 +286,48 @@ _WAIT_READY = [
 _GROUP_WAIT = ["jax.block_until_ready(",
                "    [t.out for t in tickets if t.out is not None])"]
 
+# The tuner times a warm probe on the card with CUDA events queued behind a
+# device sleep and read after a synchronize, and the first call's extra host
+# time on the host's clock; on the CPU both with the host clock.
+_TIMED = [
+    "    def _timed(self, fn) -> tuple:",
+    '        if self.device.type != "cuda":',
+    "            t0 = time.perf_counter()",
+    "            fn()",
+    "            s = time.perf_counter() - t0",
+    "            return s, s",
+    "        torch.cuda.synchronize(self.device)",
+    "        e0 = torch.cuda.Event(enable_timing=True)",
+    "        e1 = torch.cuda.Event(enable_timing=True)",
+    "        torch.cuda._sleep(_SLEEP_CYCLES)",
+    "        e0.record()",
+    "        t0 = time.perf_counter()",
+    "        fn()",
+    "        host_s = time.perf_counter() - t0",
+    "        e1.record()",
+    "        torch.cuda.synchronize(self.device)",
+    "        return host_s, e0.elapsed_time(e1) * 1e-3"]
+_TIMED_WARM = ["t0 = time.perf_counter()",
+               "jax.block_until_ready(sess.execute(plan))",
+               "warm.append(time.perf_counter() - t0)"]
+
 # The only code the forks change, as (reference lines, port lines) hunks in
-# file order: each ``jax.block_until_ready`` becomes a wait on the launch's
-# readiness event, the workers run on the service's device, the ticket's
-# ``result()`` waits on its event, and the controller config taken from a
-# tuning profile is left out (the port has no tuner).
+# file order.  Broker and predictor: each ``jax.block_until_ready`` becomes a
+# wait on the launch's readiness event, the workers run on the service's
+# device and the ticket's ``result()`` waits on its event.  Tuning database:
+# the user cache's directory, and the platform is the impl's device type
+# (``platform_of``) where the reference asks ``jax.default_backend()``.
+# Tuner: the device fixes the impl (no ``interpret``), probes are timed by
+# ``_timed`` (the compile term from host times, the execute term from device
+# times), sessions run on the tuner's device, the block sweep runs on the
+# ``cuda`` impl where the reference's runs on ``pallas``, and a sweep
+# candidate with a wrong output raises where the reference's marks it
+# invalid.
 _FORK_HUNKS = {
     "runtime/pipeline/broker.py": [
         ([], _WAIT_READY),
         ([], ["        if self.ready is not None:",
               "            self.ready.synchronize()"]),
-        (["        if controller is None and config is None:",
-          '            profile = getattr(svc, "tuning_profile", None)',
-          "            if profile is not None and profile.microbatch_sizes:",
-          "                sizes = tuple(sorted(int(s)",
-          "                                     for s in"
-          " profile.microbatch_sizes))",
-          "                config = ControllerConfig(max_batch=sizes[-1],",
-          "                                          batch_sizes=sizes)"], []),
         ([" " * 20 + line for line in _GROUP_WAIT],
          [" " * 20 + "_wait_ready(tickets)"]),
         (["        self._supervise(self._decode_main, self._recover_decode)"],
@@ -330,6 +354,91 @@ _FORK_HUNKS = {
           "            if ready is not None:",
           "                ready.synchronize()"]),
     ],
+    "core/tuning/db.py": [
+        (['    return pathlib.Path(cache) / "repro-recoil" / "tuning.json"'],
+         ['    return pathlib.Path(cache) / "repro-recoil-torch"'
+          ' / "tuning.json"']),
+        ([], ["def platform_of(impl: str) -> str:",
+              '    if impl not in ("cuda", "torch"):',
+              '        raise ValueError(f"unknown impl {impl!r} (the port\'s'
+              ' impls are "',
+              "                         \"'cuda' and 'torch')\")",
+              '    return "cuda" if impl == "cuda" else "cpu"']),
+        (["        platform = jax.default_backend()"],
+         ["        platform = platform_of(impl)"]),
+    ],
+    "core/tuning/tuner.py": [
+        ([], ["_SLEEP_CYCLES = 10_000_000"]),
+        (['    def __init__(self, model=None, *, impl: str = "jnp",'],
+         ['    def __init__(self, model=None, *, device="cuda",'
+          ' impl: str | None = None,']),
+        (["                 n_splits: int = 16, seed: int = 7,"
+          " platform: str | None = None,",
+          "                 interpret: bool = True):"],
+         ["                 n_splits: int = 16, seed: int = 7,",
+          "                 platform: str | None = None):",
+          "        self.device = resolve_device(device)",
+          '        own = "cuda" if self.device.type == "cuda" else "torch"',
+          "        if impl is not None and impl != own:",
+          "            raise ValueError(",
+          '                f"impl={impl!r} does not run on {self.device}:'
+          ' the device "',
+          '                f"fixes the impl ({own!r})")',
+          "        impl = own"]),
+        (["        self.interpret = interpret"], []),
+        (["            platform = jax.default_backend()"],
+         ["            platform = platform_of(impl)"]),
+        (["        return DecoderSession(self.model, impl=self.impl,"
+          " layout=self.layout,",
+          "                              interpret=self.interpret,"
+          " policy=policy, **kw)"],
+         ["        return DecoderSession(self.model, device=self.device,",
+          "                              layout=self.layout, policy=policy,"
+          " **kw)"]),
+        ([], _TIMED),
+        (["        t0 = time.perf_counter()",
+          "        jax.block_until_ready(sess.execute(plan))",
+          "        first_s = time.perf_counter() - t0",
+          "        warm = []",
+          "        for _ in range(self.repeats):",
+          *(" " * 12 + line for line in _TIMED_WARM),
+          "        warm_s = float(np.median(warm))"],
+         ["        first_s, _ = self._timed(lambda: sess.execute(plan))",
+          "        warm = [self._timed(lambda: sess.execute(plan))",
+          "                for _ in range(self.repeats)]",
+          "        warm_host_s = float(np.median([h for h, _ in warm]))",
+          "        warm_s = float(np.median([d for _, d in warm]))"]),
+        (["        return max(first_s - warm_s, 0.0), warm_s"],
+         ["        return max(first_s - warm_host_s, 0.0), warm_s"]),
+        (['        timed = self.platform in ("gpu", "cuda", "rocm", "tpu")'],
+         ['        timed = self.device.type == "cuda"']),
+        (['            sess = DecoderSession(self.model, impl="pallas",',
+          "                                  interpret=not timed,"
+          " rows_per_block=rpb,",
+          "                                  layout=self.layout,"
+          ' policy="legacy")'],
+         ["            sess = DecoderSession(self.model, device=self.device,",
+          "                                  rows_per_block=rpb,"
+          " layout=self.layout,",
+          '                                  policy="legacy")']),
+        (['            out = np.asarray(sess.decode_batch(req["batch"], ds,'
+          ' req["n"]))'],
+         ['            out = sess.decode_batch(req["batch"], ds,'
+          ' req["n"]).cpu().numpy()']),
+        (['                results[rpb] = {"valid": False}',
+          "                continue"],
+         ['                raise RuntimeError(f"rows_per_block={rpb}: the'
+          ' walk\'s "',
+          '                                   "output is not the input'
+          ' symbols")']),
+        (["                warm = []",
+          "                for _ in range(self.repeats):",
+          *(" " * 20 + line for line in _TIMED_WARM)],
+         ["                warm = [self._timed(lambda: sess.execute(plan))[1]",
+          "                        for _ in range(self.repeats)]"]),
+        (['        if self.impl == "pallas":'],
+         ['        if self.impl == "cuda":']),
+    ],
 }
 
 
@@ -338,7 +447,8 @@ _FORK_HUNKS = {
     "runtime/observability/profiler.py", "runtime/faultinject.py",
     "runtime/metrics.py", "runtime/pipeline/controller.py",
     "runtime/pipeline/capability.py", "runtime/pipeline/broker.py",
-    "runtime/pipeline/predictor.py"])
+    "runtime/pipeline/predictor.py", "core/tuning/db.py",
+    "core/tuning/tuner.py"])
 @in_child
 def test_copied_runtime_sources_equal_reference(module):
     """The jax-free runtime modules are copies: their text equals the
@@ -349,9 +459,11 @@ def test_copied_runtime_sources_equal_reference(module):
     and in ``capability.py`` the one line that copies a card stream's words
     to the host through ``.cpu()`` where the reference's ``np.asarray``
     would refuse a CUDA tensor (held by tests/test_torch_pipeline.py).
-    The broker and the predictor are forks: their docstrings and comments
-    speak of the port, and their code (no docstrings, comments or imports)
-    differs from the reference's in the hunks of ``_FORK_HUNKS`` alone."""
+    The broker, the predictor, the tuning database and the tuner are
+    forks: their docstrings and comments speak of the port, and their code
+    (no docstrings, comments or imports) differs from the reference's in the
+    hunks of ``_FORK_HUNKS`` alone.  The broker keeps the reference's
+    controller config from a tuning profile."""
     if module in _FORK_HUNKS:
         ref = _code_only(_source("repro", module))
         port = _code_only(_source("repro_torch", module))
@@ -372,3 +484,18 @@ def test_copied_runtime_sources_equal_reference(module):
                           "else ds.words[:ds.n_words].cpu().numpy())")
         ref, port = _code_lines(ref), _code_lines(port)
     assert port == ref
+
+
+@in_child
+def test_builtin_tuning_profiles_equal_reference():
+    """The committed CPU defaults are a byte copy of the reference's: a
+    hand-written ladder (``measurements: 0``), not a timing, and no
+    ``cuda:`` profile."""
+    import json
+    from repro.core.tuning import builtin_db_path as j_builtin
+    from repro_torch.core.tuning import builtin_db_path
+    data = builtin_db_path().read_bytes()
+    assert data == j_builtin().read_bytes()
+    profiles = json.loads(data)["profiles"]
+    assert not [k for k in profiles if k.startswith("cuda:")]
+    assert {p["measurements"] for p in profiles.values()} == {0}

@@ -35,15 +35,24 @@ from repro.runtime.serve import DecodeService as JService
 from repro.runtime.serve import DecodeTicket as JTicket
 
 # The reference's metric names that the port leaves out: the encoder has no
-# executable cache or fast/full tier, no executor copies streams to the
-# host, and the port has no bucket policy for the policy label.
+# executable cache or fast/full tier, and no executor copies streams to the
+# host.
 LEFT_OUT = (
     "recoil_service_encode_compiles_total",
     "recoil_service_encode_fallbacks_total",
     "recoil_service_host_materializations_total",
     "recoil_engine_host_materialized_bytes_total",
-    "recoil_engine_policy_info",
 )
+
+
+def _as_port_impl(j_snap) -> None:
+    """``recoil_engine_policy_info``'s ``impl`` label names each package's
+    backend for the same CPU walk: the reference's ``jnp`` is the port's
+    ``torch``.  Its layout and policy labels must agree as they are."""
+    info = j_snap["recoil_engine_policy_info"]["values"]
+    j_snap["recoil_engine_policy_info"]["values"] = {
+        k.replace("jnp|", "torch|", 1) if k.startswith("jnp|") else k: v
+        for k, v in info.items()}
 
 # Metrics whose values are host times, so differ between packages: held to
 # equal label sets (and, for the histogram, equal counts per label) only.
@@ -690,6 +699,7 @@ def test_service_metrics_and_traces_match_reference():
     t_snap, j_snap = tsvc.metrics(), jsvc.metrics()
     assert set(t_snap) == set(j_snap) - set(LEFT_OUT)
     j_snap["recoil_profiler_compiles_total"]["values"]["encode"] = 0
+    _as_port_impl(j_snap)
     for name in t_snap:
         t_vals, j_vals = t_snap[name]["values"], j_snap[name]["values"]
         if name not in TIMED:
@@ -753,6 +763,7 @@ def test_service_metrics_and_traces_match_reference():
         {n for n in J_SCHEMA if n.startswith("recoil_broker_")} - {
             "recoil_broker_lane_depth"}        # no lane holds a request
     j_snap["recoil_profiler_compiles_total"]["values"]["encode"] = 0
+    _as_port_impl(j_snap)
     for name in t_snap:
         t_vals, j_vals = t_snap[name]["values"], j_snap[name]["values"]
         if name not in TIMED:

@@ -241,3 +241,51 @@ def test_pointer_walk_on_int16_stream(ways):
         np.testing.assert_array_equal(out.numpy(), np.asarray(j_out))
         np.testing.assert_array_equal(qf.numpy(), np.asarray(j_qf))
         np.testing.assert_array_equal(out.numpy(), syms)
+
+
+@in_child
+def test_rows_per_block_is_checked_on_the_host_and_keys_the_plan():
+    """``rows_per_block`` (warps a block) is checked by the wrappers on any
+    tensor, before any launch, and by the session at construction; on the
+    CPU the plain walk ignores a valid one (equal outputs) and the session
+    keeps it in the plan key."""
+    from repro_torch.core.engine import (DecoderSession, SPLIT_FIELDS,
+                                         pad_split_arrays)
+    from repro_torch.kernels.rans_decode.ops import _luts
+    from repro_torch.kernels.rans_decode.rans_decode import (
+        ROWS_PER_BLOCK, check_rows_per_block, reset_counts,
+        walk_decode_pointer)
+    assert ROWS_PER_BLOCK == (1, 2, 4, 8, 16, 32)
+    assert check_rows_per_block(None) == check_rows_per_block(4) == 128
+    assert [check_rows_per_block(r) for r in (4, 8, 16)] == [128, 256, 512]
+    syms, jm, enc = _make(n=6_000, seed=5, ways=64)
+    plan, _, tb = _batches(enc, 5)
+    tm = _port_model(jm)
+    arrs = pad_split_arrays(tb, tb.k.shape[0], "cpu")
+    import torch
+    args = (torch.from_numpy(enc.stream.astype(np.int32)),
+            *_luts(tm, True, "cpu"), *(arrs[f] for f in SPLIT_FIELDS))
+    st = dict(n_bits=jm.params.n_bits, ways=64, n_steps=tb.n_steps,
+              n_symbols=plan.n_symbols)
+    reset_counts()
+    base, _ = walk_decode_pointer(*args, **st)
+    for rpb in (2, 4, 32):
+        out, _ = walk_decode_pointer(*args, **st, rows_per_block=rpb)
+        assert torch.equal(out, base)
+    assert walk_decode_pointer.plain_calls == 4
+    for bad in (0, 3, 64, -2, True, 8.0, "4", 1):   # 1 warp < a W=64 split
+        with pytest.raises(ValueError, match="rows_per_block"):
+            walk_decode_pointer(*args, **st, rows_per_block=bad)
+        with pytest.raises(ValueError, match="rows_per_block"):
+            DecoderSession(tm, device="cpu", rows_per_block=bad)
+    assert walk_decode_pointer.plain_calls == 4
+    assert walk_decode_pointer.launches == 0
+    keys = set()
+    for rpb in (None, 4, 8):
+        sess = DecoderSession(tm, device="cpu", rows_per_block=rpb)
+        p = sess.prepare(tb, enc.stream, plan.n_symbols)
+        assert p.key[-1] == rpb
+        np.testing.assert_array_equal(sess.execute(p).numpy(), syms)
+        keys.add(p.key)
+    assert len(keys) == 3
+    reset_counts()

@@ -73,11 +73,13 @@ def session_walk(sess, batch, stream, n_symbols):
     ``pairs`` holds ``(executor, plain)`` for the output and, for the
     pointer layout, the final pointers after it."""
     plan = sess.prepare(batch, stream, n_symbols)
-    got = sess.executor.lower(plan)(*plan.args, n_symbols=plan.n_symbols,
+    got = sess.executor.lower(plan)(*plan.args, n_steps=plan.n_steps,
+                                    n_symbols=plan.n_symbols,
                                     covered=plan.covered)
     plain = (_walk_batch_symbol_impl if plan.layout == "symbol"
              else _walk_batch_impl)
-    ref = plain(*plan.args, **plan.statics, n_symbols=plan.n_symbols)
+    ref = plain(*plan.args, **plan.statics, n_steps=plan.n_steps,
+                n_symbols=plan.n_symbols)
     if plan.layout == "pointer":
         return plan.layout, [(got[0], ref[0]), (got[1], ref[1])]
     return plan.layout, [(got, ref)]
