@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives only the port (``src/repro_torch``) — nothing of JAX or of the JAX
-package — in six phases, each failing loudly with a non-zero exit:
+package — in seven phases, each failing loudly with a non-zero exit:
 
   1. device  — the card's name, count, and ``nvidia-smi`` name/power limit;
   2. build   — one ``nvcc`` per kernel source, started together, with each
@@ -140,7 +140,26 @@ package — in six phases, each failing loudly with a non-zero exit:
                stream, decodes both at 16, 128 and 2176 threads and in a
                fused group, bit-equal, twice (the warm round resolving no
                launcher), and its broker takes the profile's microbatch
-               sizes.  This path's launches join the kernel table's.
+               sizes.  This path's launches join the kernel table's;
+  7. shards  — the sharded executor on meshes that repeat the one card,
+               ``(cuda:0,) * k`` for k in 1, 2, 4 and the 2 x 2 smoke mesh:
+               both assets at 16, 128 and 2176 threads, each decode equal
+               to the symbols and the main service's unsharded decode, with
+               each shard's real rows (held to the reference's partition
+               formula), the words it reads against the stream's or
+               permutation's bucket, its step count and its own launch; a
+               warm round resolves no launcher.  A sharded
+               ``DecodeService`` (4 entries, microbatch 8) runs a fused
+               group twice (2 fused dispatches, 1 launcher, 1 cache hit)
+               and the broker stress of ``tests/test_pipeline.py``
+               (concurrent submits during re-ingests of 3 contents, every
+               result bit-exact, no dispatch or ingest error); then both
+               examples run through their ``main()`` (their lines are in
+               the log).  This path's launches join the kernel table's.
+               Then CUDA-event times: each request's sharded decode at
+               k = 1, 2, 4 beside the unsharded one, and each shard's walk
+               alone.  One card runs a mesh's shards one after another, so
+               these time the partition, fills and merge, not scaling.
 
 Prints, before the last line, the kernel table as one JSON object and the
 card's ``nvidia-smi`` line; the last line is the JSON run summary.  Exits
@@ -2347,6 +2366,204 @@ def phase_tuning(svc, assets, rd, re_, errs, smi) -> dict:
     return launches
 
 
+# Phase 7: the sharded executor on meshes that repeat the one card.
+SHARD_COUNTS = (1, 2, 4)
+
+
+def _shard_rows(plan) -> list:
+    """Real rows of each shard of a sharded plan (0 for an empty one)."""
+    n_shards = plan.key[3]
+    rows = [0] * n_shards
+    for sh in plan.args:
+        rows[sh.shard] = sh.rows[1] - sh.rows[0]
+    return rows
+
+
+def _run_example(name: str) -> float:
+    """``examples/<name>.py``'s ``main()`` on the card (its lines go to
+    this log); returns its wall time in seconds."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(SRC), "examples", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    log(f"[shards] examples/{name}.py main() on the card:")
+    t = time.perf_counter()
+    module.main()
+    sys.stdout.flush()
+    return time.perf_counter() - t
+
+
+def phase_shards(svc, assets, rd, re_, smi) -> dict:
+    """The sharded executor on the card (phase 7).
+
+    Sharded sessions over ``(cuda:0,) * k`` for k in SHARD_COUNTS and the
+    2 x 2 smoke mesh decode both assets of the main path at THREADS, each
+    equal to the symbols and to the main service's unsharded decode, with
+    each shard's rows, slab and launch printed and the partition held to
+    the reference's formula; a second round resolves no launcher.  Then a
+    sharded ``DecodeService`` (4 entries, microbatch 8) runs a fused group
+    twice and the pipeline stress on the card, and both examples run
+    through their ``main()``.  Every count is 0 before and read after this
+    path; then the CUDA-event times.  Returns this path's launches."""
+    from repro_torch.core.engine import DecoderSession
+    from repro_torch.core.recoil import build_split_states, combine_plan
+    from repro_torch.core.vectorized import WalkBatch
+    from repro_torch.launch.mesh import make_decode_mesh, make_smoke_mesh
+    from repro_torch.parallel.decode_shard import gather_slabs
+    from repro_torch.runtime.serve import DecodeService
+    from torch_checks import stress_payloads, threaded_stress
+    dev = svc.session.device
+    model = svc.session.model
+    want = {k: torch.as_tensor(v.astype(np.int32), device=dev)
+            for k, v in assets.items()}
+    reqs = [(n, th) for n in assets for th in THREADS]
+    whole = {r: svc.decode(*r) for r in reqs}        # the unsharded decodes
+    batches = {}
+    for name, th in reqs:
+        c = svc.content(name)
+        plan = combine_plan(c.plan, th)
+        batches[(name, th)] = (WalkBatch.from_splits(
+            build_split_states(plan, c.final_states), plan.ways),
+            plan.n_symbols, c.stream)
+    meshes = {f"k={k}": make_decode_mesh(devices=(dev,) * k)
+              for k in SHARD_COUNTS}
+    meshes["smoke 2x2"] = make_smoke_mesh(devices=(dev,) * 4)
+    torch.cuda.synchronize()
+
+    rd.reset_counts()
+    re_.reset_counts()
+    t_phase = time.perf_counter()
+    sessions, plans = {}, {}
+    for label, mesh in meshes.items():
+        sess = sessions[label] = DecoderSession(model, impl="sharded",
+                                                mesh=mesh)
+        if sess.device != dev or sess.impl != "sharded":
+            fail(f"{label}: session on {sess.device}, impl {sess.impl}")
+        for rnd in range(2):
+            before = sess.stats.compiles
+            for name, th in reqs:
+                batch, n, ds = batches[(name, th)]
+                plan = plans[(label, name, th)] = sess.prepare(batch, ds, n)
+                walk = (rd.walk_decode_symbol if plan.layout == "symbol"
+                        else rd.walk_decode_pointer)
+                launched = walk.launches
+                out = sess.execute(plan)
+                launched = walk.launches - launched
+                if not (torch.equal(out, want[name])
+                        and torch.equal(out, whole[(name, th)])):
+                    fail(f"{label} {name} at {th} threads != the symbols "
+                         "or the unsharded decode")
+                if launched != len(plan.args):
+                    fail(f"{label} {name} at {th} threads: {launched} walk "
+                         f"launches for {len(plan.args)} shards with rows")
+                if rnd:
+                    continue
+                n_shards, s_b = plan.key[3], plan.key[8]
+                per = svc.session.policy.work(
+                    -(-batch.k.shape[0] // n_shards))
+                expect = [max(0, min(per, batch.k.shape[0] - s * per))
+                          for s in range(n_shards)]
+                rows = _shard_rows(plan)
+                if rows != expect or s_b != per * n_shards:
+                    fail(f"{label} {name} at {th}: rows {rows}, the "
+                         f"reference's formula gives {expect}")
+                bucket = ds.sym_bucket if plan.layout == "symbol" \
+                    else ds.bucket
+                log(f"[shards] {label} {name} ({plan.layout}) at {th} "
+                    f"threads: {batch.k.shape[0]} splits, bucket {s_b}; "
+                    f"rows {rows}; words read {[sh.span for sh in plan.args]}"
+                    f" in slabs of {plan.key[10]}, of {bucket} words; "
+                    f"steps {[sh.n_steps for sh in plan.args]} of "
+                    f"{batch.n_steps}; launches {launched} (one a shard "
+                    "with rows)")
+            if rnd and sess.stats.compiles != before:
+                fail(f"{label}: the warm round resolved "
+                     f"{sess.stats.compiles - before} launchers")
+        log(f"[shards] {label}: {len(reqs)} decodes x 2 rounds bit-equal to "
+            f"the symbols and the unsharded decode; "
+            f"{sess.stats.compiles} launchers resolved, 0 in the warm round")
+
+    # An hour-scale delay: a group leaves only at flush(), however long a
+    # 10 MB request's first thinning takes.
+    sharded = DecodeService(model, impl="sharded", mesh=meshes["k=4"],
+                            microbatch=8, max_delay_ms=3_600_000.0)
+    sharded.ingest("expo", assets["expo"].astype(np.uint8), PLAN_THREADS)
+    z = svc.content("zipf")
+    sharded.register("zipf", z.plan, z.stream, z.final_states)
+    group = [("expo", 2176), ("zipf", 2176), ("expo", 128), ("zipf", 16)]
+    for _ in range(2):
+        tickets = [sharded.submit(n, th) for n, th in group]
+        sharded.flush()
+        for (name, th), tk in zip(group, tickets):
+            if not torch.equal(tk.result(), want[name]):
+                fail(f"sharded fused {name} at {th} threads != the symbols")
+    st = sharded.stats
+    if st.fused_dispatches != 2 or st.compiles != 1 or st.cache_hits != 1:
+        fail(f"sharded fused group: {st.snapshot()}, expected 2 fused "
+             "dispatches, 1 launcher resolved, 1 cache hit")
+    log(f"[shards] sharded DecodeService (4 entries, microbatch 8): a fused "
+        f"group of {len(group)} twice, bit-exact; fused dispatches "
+        f"{st.fused_dispatches}, compiles {st.compiles}, cache hits "
+        f"{st.cache_hits}")
+    t = time.perf_counter()
+    payloads = stress_payloads()
+    sharded.ingest_batch(payloads, 16)
+    snap = threaded_stress(sharded, payloads, 120.0)
+    log(f"[shards] broker stress on the sharded service: 60 results "
+        f"bit-exact during 6 x 3 re-ingests, dispatch errors "
+        f"{snap['dispatch_errors']}, ingest errors {snap['ingest_errors']}, "
+        f"overlap ratio {snap['overlap']['overlap_ratio']:.3f}, "
+        f"{time.perf_counter() - t:.1f} s")
+    took = {name: _run_example(name)
+            for name in ("quickstart_torch", "content_delivery_torch")}
+    torch.cuda.synchronize()
+    launches = {"walk_pointer": rd.walk_decode_pointer.launches,
+                "walk_symbol": rd.walk_decode_symbol.launches,
+                "encode_scan": re_.encode_scan.launches,
+                "plan_splits": re_.plan_splits.launches}
+    plain = (rd.walk_decode_pointer.plain_calls
+             + rd.walk_decode_symbol.plain_calls
+             + re_.encode_scan.plain_calls + re_.plan_splits.plain_calls)
+    if min(launches.values()) == 0 or plain != 0:
+        fail(f"the sharded path's launches {launches}, plain versions "
+             f"{plain}")
+    log(f"[shards] examples ran in "
+        f"{ {k: round(v, 1) for k, v in took.items()} } s; this path's "
+        f"launches {launches}, plain versions 0, output fills "
+        f"{rd.walk_decode_pointer.fills + rd.walk_decode_symbol.fills}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # Device times: CUDA events behind a device sleep, mean of TIME_REPS.
+    # A sharded decode's execute is its shards' fills and walks and the
+    # merge; its plan's slab gather (memoized with the plan) is timed apart.
+    for name, th in reqs:
+        unsharded = svc.prepare_request(name, th)
+        base, _ = cuda_ms(lambda: svc.session.execute(unsharded), TIME_REPS)
+        parts = []
+        for k in SHARD_COUNTS:
+            label = f"k={k}"
+            sess, plan = sessions[label], plans[(label, name, th)]
+            ms, _ = cuda_ms(lambda: sess.execute(plan), TIME_REPS)
+            fn = sess._exec[plan.key]
+            walks = [cuda_ms(lambda sh=sh: fn(
+                *sh.args, n_steps=sh.n_steps, n_symbols=plan.n_symbols,
+                covered=False), TIME_REPS)[0] for sh in plan.args]
+            ds = batches[(name, th)][2]
+            src = ds.by_symbol if plan.layout == "symbol" else ds.words
+            origins = torch.as_tensor([sh.origin for sh in plan.args],
+                                      device=dev)
+            bucket = ds.sym_bucket if plan.layout == "symbol" else ds.bucket
+            gather, _ = cuda_ms(lambda: gather_slabs(
+                src, origins, plan.key[10], bucket), TIME_REPS)
+            parts.append(f"k={k} {ms:.4f} ms (shard walks "
+                         f"{', '.join(f'{w:.4f}' for w in walks)}; plan's "
+                         f"slab gather {gather:.4f})")
+        log(f"[shards] times {name} at {th} threads: unsharded {base:.4f} "
+            f"ms; " + "; ".join(parts) + f"; card: {smi}")
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     sys.path.insert(0, SRC)
@@ -2367,10 +2584,12 @@ def main() -> int:
     phase_observe_cost(svc, assets, smi)
     phase_broker_times(svc, assets, smi)
     rows += phase_ingest_times(svc, assets, launches, errs, smi, sass)
-    for name, n in phase_tuning(svc, assets, rd, re_, errs, smi).items():
-        for row in rows:
-            if row["name"] == name:
-                row["launches"] += n
+    for phase in (phase_tuning(svc, assets, rd, re_, errs, smi),
+                  phase_shards(svc, assets, rd, re_, smi)):
+        for name, n in phase.items():
+            for row in rows:
+                if row["name"] == name:
+                    row["launches"] += n
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

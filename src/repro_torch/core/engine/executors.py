@@ -14,16 +14,20 @@ Backends:
   * ``cuda``  — the hand-written Hopper kernels (``kernels.rans_decode``)
                 on a CUDA device;
   * ``torch`` — the same wrappers on CPU tensors, i.e. the plain torch
-                walks (the CPU path and the oracle for the kernels).
+                walks (the CPU path and the oracle for the kernels);
+  * ``sharded`` — the split rows sharded over a device mesh, each shard
+                calling the same wrappers on its own slab; lives in
+                ``repro_torch.parallel.decode_shard`` (imported lazily so
+                the core engine never touches mesh state).
 
-Both read the whole resident stream (or permutation) and the (S, W) split
-arrays directly, so they share one ``plan``.  The split arrays hold the
-request's real rows; the key carries their bucket, so its counts match the
-reference's.  A launcher is bound to what every plan of its key shares
-(``n_bits``, ``ways``, ``rows_per_block``); ``run`` passes what differs
-between plans of one key -- the real walk depth, the real output length and
-whether the kept windows tile the output -- at run time, so a walk runs
-the steps its splits need and not its key's bucket.
+``cuda`` and ``torch`` read the whole resident stream (or permutation)
+and the (S, W) split arrays directly, so they share one ``plan``.  The
+split arrays hold the request's real rows; the key carries their bucket,
+so its counts match the reference's.  A launcher is bound to what every
+plan of its key shares (``n_bits``, ``ways``, ``rows_per_block``); ``run``
+passes what differs between plans of one key -- the real walk depth, the
+real output length and whether the kept windows tile the output -- at run
+time, so a walk runs the steps its splits need and not its key's bucket.
 """
 
 from __future__ import annotations
@@ -209,7 +213,7 @@ class CudaExecutor(Executor):
 
 
 def make_executor(impl: str, model: StaticModel, packed_lut: bool,
-                  luts: tuple, device: torch.device, *,
+                  luts: tuple, device: torch.device, *, mesh=None,
                   layout: str = "auto", policy: BucketPolicy | None = None,
                   rows_per_block: int | None = None) -> Executor:
     if impl == "cuda":
@@ -218,4 +222,9 @@ def make_executor(impl: str, model: StaticModel, packed_lut: bool,
     if impl == "torch":
         return TorchExecutor(model, packed_lut, luts, device, layout, policy,
                              rows_per_block)
+    if impl == "sharded":
+        from ...parallel.decode_shard import ShardedExecutor
+        return ShardedExecutor(model, packed_lut, luts, mesh=mesh,
+                               layout=layout, policy=policy,
+                               rows_per_block=rows_per_block)
     raise ValueError(f"unknown impl {impl!r}")

@@ -9,10 +9,11 @@ The session owns exactly three things:
     the name is the reference's, whose counters and profiler read it);
   * request accounting (:class:`EngineStats`).
 
-All backend knowledge lives in the executor (``cuda`` / ``torch`` — see
-``engine.executors``).  The prepare/execute split is public API: callers
-that re-issue the same request shape (e.g. ``runtime.serve.DecodeService``)
-cache the :class:`DecodePlan` and skip the host-side preparation entirely.
+All backend knowledge lives in the executor (``cuda`` / ``torch`` /
+``sharded`` — see ``engine.executors``).  The prepare/execute split is
+public API: callers that re-issue the same request shape (e.g.
+``runtime.serve.DecodeService``) cache the :class:`DecodePlan` and skip the
+host-side preparation entirely.
 
 Thread model: the cache and stats are guarded by ``_lock`` — a cache miss
 resolves under the lock (a racing thread waits instead of resolving twice,
@@ -54,13 +55,23 @@ class EngineStats:
 class DecoderSession:
     """Device-resident Recoil decoder with a bucketed plan cache.
 
-    ``device`` defaults to ``"cuda"``; with no card present that raises —
-    pass ``device="cpu"`` for the plain torch walks.  The device fixes the
-    backend, read back as :attr:`impl`: ``"cuda"`` (the Hopper kernels) on a
-    CUDA device, ``"torch"`` on the CPU, so the plain walk never serves a
-    session on the card.  ``impl=`` is accepted for the reference's
-    signature only and raises unless it names that backend.  ``packed_lut``
-    defaults to auto: the §4.4 packed table whenever the model fits it.
+    ``device`` defaults to the card (``None`` = ``"cuda"``); with no card
+    present that raises — pass ``device="cpu"`` for the plain torch walks.
+    The device fixes the backend, read back as :attr:`impl`: ``"cuda"`` (the
+    Hopper kernels) on a CUDA device, ``"torch"`` on the CPU, so the plain
+    walk never serves a session on the card.  ``impl=`` names that backend
+    or ``"sharded"``, and raises for anything else.
+
+    ``impl="sharded"`` shards the split rows over ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.DecodeMesh`; ``None`` builds
+    :func:`~repro_torch.launch.mesh.make_decode_mesh`, every visible card,
+    and raises with none): each shard runs the walk of its mesh entry's
+    device on its own slab, and the merged output lives on the mesh's first
+    device, which is the session's ``device`` (a ``device=`` that differs
+    raises).  See ``repro_torch.parallel.decode_shard``.
+
+    ``packed_lut`` defaults to auto: the §4.4 packed table whenever the
+    model fits it.
 
     ``layout`` is the stream-layout policy: ``"auto"`` (default) runs the
     pointer-free symbol-indexed walk for handles that carry a
@@ -71,8 +82,9 @@ class DecoderSession:
     legacy pow2/midpoint ladder unless the ``REPRO_TUNING_DB`` environment
     variable points at a tuning database; ``"tuned"`` resolves the best
     persisted profile for this backend (``cuda:cuda:<layout>`` on the card,
-    ``cpu:torch:<layout>`` on the CPU: env var, then user cache, then the
-    committed CPU defaults); ``"legacy"`` forces the hand-picked ladder; a
+    ``cpu:torch:<layout>`` on the CPU, ``<cuda or cpu>:sharded:<layout>``
+    for a sharded session: env var, then user cache, then the committed CPU
+    defaults); ``"legacy"`` forces the hand-picked ladder; a
     :class:`~repro_torch.core.engine.plan.BucketPolicy` or a tuning
     :class:`~repro_torch.core.tuning.Profile` is used directly.
     ``policy.tag`` joins every plan key, so ladders never alias.
@@ -90,17 +102,31 @@ class DecoderSession:
     runtime).  None keeps :meth:`execute` free of timing branches.
     """
 
-    def __init__(self, model: StaticModel, *, device="cuda", impl=None,
+    def __init__(self, model: StaticModel, *, device=None, impl=None,
                  packed_lut: bool | None = None, layout: str = "auto",
                  policy=None, rows_per_block: int | None = None,
-                 profiler=None):
+                 mesh=None, profiler=None):
         from ...kernels.rans_decode.ops import _luts, packed_lut_ok
-        self.device = resolve_device(device)
-        own = "cuda" if self.device.type == "cuda" else "torch"
-        if impl is not None and impl != own:
-            raise ValueError(
-                f"impl={impl!r} does not run on {self.device}: the device "
-                f"fixes the impl ({own!r})")
+        if impl == "sharded":
+            if mesh is None:
+                from ...launch.mesh import make_decode_mesh
+                mesh = make_decode_mesh()
+            self.device = mesh.devices[0]
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(
+                    f"device={device!r} is not the mesh's first device "
+                    f"{self.device}, where a sharded session's output lives")
+            own = "sharded"
+        else:
+            if mesh is not None:
+                raise ValueError("mesh= is for impl='sharded'")
+            self.device = resolve_device("cuda" if device is None else device)
+            own = "cuda" if self.device.type == "cuda" else "torch"
+            if impl is not None and impl != own:
+                raise ValueError(
+                    f"impl={impl!r} does not run on {self.device}: the "
+                    f"device fixes the impl ({own!r}, or 'sharded' with a "
+                    "mesh)")
         self.profiler = profiler
         self.model = model
         if packed_lut is None:
@@ -112,19 +138,21 @@ class DecoderSession:
         # so the session resolves policies at construction time only.
         from ..tuning import resolve_policy
         self.policy, self.tuning_profile = resolve_policy(
-            policy, impl=own, layout=layout)
+            policy, impl=own, layout=layout,
+            platform="cuda" if self.device.type == "cuda" else "cpu")
         # Device-resident slot tables, uploaded once.
         self._luts = _luts(model, packed_lut, self.device)
         self.executor = make_executor(
-            own, model, packed_lut, self._luts, self.device, layout=layout,
-            policy=self.policy, rows_per_block=rows_per_block)
+            own, model, packed_lut, self._luts, self.device, mesh=mesh,
+            layout=layout, policy=self.policy, rows_per_block=rows_per_block)
         self._exec: dict[tuple, object] = {}
         self._lock = threading.Lock()   # guards _exec + stats (see header)
         self.stats = EngineStats()
 
     @property
     def impl(self) -> str:
-        """The backend the device fixes: ``"cuda"`` or ``"torch"``."""
+        """The backend: ``"cuda"`` or ``"torch"`` (fixed by the device), or
+        ``"sharded"``."""
         return self.executor.impl
 
     # ------------------------------------------------------------------

@@ -27,9 +27,12 @@ of code that did not opt in.  Lookup falls back along
 What differs from the reference: ``platform`` is the session's device type,
 ``"cuda"`` or ``"cpu"`` (the reference asks ``jax.default_backend()``), so
 the port's keys read ``cuda:cuda:<layout>`` on the card and
-``cpu:torch:<layout>`` on the CPU (:func:`platform_of`); and the user
-cache's directory.  ``tests/test_torch_host.py`` holds the code to the
-reference's apart from those hunks.
+``cpu:torch:<layout>`` on the CPU (:func:`platform_of`); a sharded session,
+whose impl runs on either, passes its mesh's device type through
+:func:`resolve_policy`'s ``platform`` (``cuda:sharded:<layout>``,
+``cpu:sharded:<layout>``); and the user cache's directory.
+``tests/test_torch_host.py`` holds the code to the reference's apart from
+those hunks.
 """
 
 from __future__ import annotations
@@ -210,7 +213,8 @@ def _db_stack() -> list:
 def platform_of(impl: str) -> str:
     """The profile platform of a port impl: the device type it runs on
     (``"cuda"`` for the Hopper kernels, ``"cpu"`` for the plain torch
-    walks).  A session's impl is fixed by its device."""
+    walks).  A session's impl is fixed by its device; ``"sharded"`` runs
+    on either, so its caller passes the platform."""
     if impl not in ("cuda", "torch"):
         raise ValueError(f"unknown impl {impl!r} (the port's impls are "
                          "'cuda' and 'torch')")
@@ -230,14 +234,16 @@ def resolve_profile(*, impl: str, layout: str,
     return None
 
 
-def resolve_policy(policy, *, impl: str,
-                   layout: str) -> tuple[BucketPolicy, Profile | None]:
+def resolve_policy(policy, *, impl: str, layout: str,
+                   platform: str | None = None
+                   ) -> tuple[BucketPolicy, Profile | None]:
     """Session-facing policy resolution (DecoderSession / EncoderSession).
 
     ``None`` — legacy, unless ``$REPRO_TUNING_DB`` is set (explicit opt-in
     via environment); ``"legacy"`` / ``"tuned"`` by name; a
     :class:`Profile` or :class:`BucketPolicy` used directly.  Returns the
     policy plus the profile it came from (None for legacy/ad-hoc ladders).
+    ``platform`` is :func:`resolve_profile`'s (default: the impl's).
     """
     if policy is None:
         policy = "tuned" if os.environ.get(ENV_DB) else "legacy"
@@ -248,7 +254,7 @@ def resolve_policy(policy, *, impl: str,
     if policy == "legacy":
         return LEGACY_POLICY, None
     if policy == "tuned":
-        prof = resolve_profile(impl=impl, layout=layout)
+        prof = resolve_profile(impl=impl, layout=layout, platform=platform)
         if prof is None:
             return LEGACY_POLICY, None
         return prof.policy(), prof

@@ -236,11 +236,12 @@ class DecodeService:
     ``register`` uploads a payload's bitstream to the device once;
     ``decode``/``submit`` thin the split metadata to the request's thread
     count (a pure metadata deletion, paper §3.3) and run the cached
-    bucketed launch.  ``device`` defaults to ``"cuda"`` (the Hopper
-    kernels); pass ``device="cpu"`` for the plain torch walks.  See the
-    module docstring for the two request paths.  ``session_kw`` reaches the
-    :class:`DecoderSession` (``layout``, ``policy``, ``rows_per_block``,
-    ``packed_lut``).
+    bucketed launch.  ``device`` defaults to the card (``None`` =
+    ``"cuda"``, the Hopper kernels); pass ``device="cpu"`` for the plain
+    torch walks.  See the module docstring for the two request paths.
+    ``session_kw`` reaches the :class:`DecoderSession` (``layout``,
+    ``policy``, ``rows_per_block``, ``packed_lut``, and ``impl="sharded"``
+    with ``mesh=``, whose first device is then the service's).
 
     ``observe=False`` turns the instrumentation off (:data:`NULL_TRACE`
     everywhere, no profiler timing branches; the pull metrics remain).
@@ -253,7 +254,7 @@ class DecodeService:
     # split arrays, so distinct request groups must not accumulate forever.
     MAX_FUSED_PLANS = 256
 
-    def __init__(self, model: StaticModel, *, device="cuda",
+    def __init__(self, model: StaticModel, *, device=None,
                  microbatch: int = 8, max_delay_ms: float = 50.0,
                  observe: bool = True, trace_capacity: int = 1024,
                  faults=None, **session_kw):

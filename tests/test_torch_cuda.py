@@ -1086,3 +1086,137 @@ def test_cuda_error_at_the_wait_reaches_the_failure_handler(cuda_device,
     assert "CUDA" in lines["ERR"] or "device-side" in lines["ERR"], lines
     want = ["2", "1", "0", "1"] if observe else ["1", "0", "0", "1"]
     assert lines["SNAP"].split() == want, lines
+
+
+# ----------------------------------------------------------------------
+# The sharded executor on the card: shards of (cuda:0,) * k
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("ways", [16, 32, 64])
+@pytest.mark.parametrize("layout", ["symbol", "pointer"])
+@in_child
+def test_sharded_decode_on_the_card(cuda_device, k, ways, layout):
+    """A sharded service over ``(cuda:0,) * k`` at 5 and 64 threads (at k =
+    4, 5 splits leave the last shard empty) and in a fused group: every
+    output equals the plain sharded path on a CPU mesh of k entries, the
+    unsharded CUDA service and the symbols; each shard with rows launched
+    once, the empty one not at all, and no plain walk ran on the card."""
+    import torch
+    from repro_torch.kernels.rans_decode.rans_decode import (
+        reset_counts, walk_decode_pointer, walk_decode_symbol)
+    from repro_torch.launch.mesh import make_decode_mesh
+    from repro_torch.runtime.serve import DecodeService
+    syms, model, enc, _ = _content(40 + ways, 30_000, ways, 11, 64)
+
+    def service(**kw):
+        svc = DecodeService(model, layout=layout, **kw)
+        svc.ingest("a", syms, 64)
+        return svc
+    card = service(impl="sharded",
+                   mesh=make_decode_mesh(devices=(cuda_device,) * k))
+    assert card.session.device == cuda_device
+    assert card.layout_for("a") == layout
+    plain = service(impl="sharded",
+                    mesh=make_decode_mesh(devices=("cpu",) * k))
+    whole = service(device=cuda_device)
+    reqs = [("a", 5), ("a", 64), ("a", 16)]
+    want = {th: plain.decode("a", th) for _, th in reqs}
+    reset_counts()
+    walk = walk_decode_symbol if layout == "symbol" else walk_decode_pointer
+    shards = {th: len(card.prepare_request("a", th).args) for _, th in reqs}
+    if k == 4:
+        assert shards[5] == 3
+    for _, th in reqs:
+        before = walk.launches
+        out = card.decode("a", th)
+        assert out.device == cuda_device
+        assert walk.launches - before == shards[th]
+        assert torch.equal(out.cpu(), want[th])
+        assert torch.equal(out, whole.decode("a", th))
+        assert (out.cpu().numpy() == syms).all()
+    tickets = [card.submit(n, th) for n, th in reqs]
+    card.flush()
+    for t in tickets:
+        assert (t.result().cpu().numpy() == syms).all()
+    assert card.stats.fused_dispatches == 1
+    assert walk_decode_pointer.plain_calls + walk_decode_symbol.plain_calls \
+        == 0
+
+
+@in_child
+def test_sharded_session_on_the_card_refuses_another_device(cuda_device):
+    """The default mesh covers every visible card; a ``device=`` other than
+    the mesh's first device raises, and so does a mesh of mixed device
+    types."""
+    import torch
+    from repro_torch.core.engine import DecoderSession
+    from repro_torch.launch.mesh import DecodeMesh, make_decode_mesh
+    _, model, _, _ = _content(3, 5_000, 32, 11, 8)
+    mesh = make_decode_mesh()
+    assert len(mesh.devices) == torch.cuda.device_count()
+    with pytest.raises(ValueError, match="one type"):
+        DecodeMesh(("cpu", cuda_device), ("shard",), (2,))
+    sess = DecoderSession(model, impl="sharded")
+    assert sess.impl == "sharded" and sess.device == mesh.devices[0]
+    with pytest.raises(ValueError, match="first device"):
+        DecoderSession(model, impl="sharded",
+                       mesh=make_decode_mesh(devices=(cuda_device,) * 2),
+                       device="cpu")
+
+
+@pytest.mark.parametrize("order", ["every card", "interleaved"])
+@pytest.mark.parametrize("layout", ["symbol", "pointer"])
+@in_child
+def test_sharded_decode_across_cards(cuda_device, layout, order):
+    """A mesh over distinct cards (every visible card, or two cards
+    interleaved as (0, 1, 0, 1)): shards run on their own cards, each
+    card's words are re-pinned once and reused warm, the merged output
+    lands on the first card and equals the unsharded decode, the symbols
+    and a fused group through the broker.  Skips with fewer than 2 cards."""
+    import torch
+    from repro_torch.kernels.rans_decode.rans_decode import (
+        reset_counts, walk_decode_pointer, walk_decode_symbol)
+    from repro_torch.launch.mesh import make_decode_mesh
+    from repro_torch.runtime.serve import DecodeService
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs 2 or more cards")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    mesh = (make_decode_mesh() if order == "every card" else
+            make_decode_mesh(devices=[cards[0], cards[1]] * 2))
+    syms, model, _, _ = _content(11, 30_000, 32, 11, 64)
+    svc = DecodeService(model, impl="sharded", mesh=mesh, layout=layout)
+    whole = DecodeService(model, device=cards[0], layout=layout)
+    for s in (svc, whole):
+        s.ingest("a", syms, 64)
+    from repro_torch.core.recoil import build_split_states, combine_plan
+    from repro_torch.core.vectorized import WalkBatch
+    ex = svc.session.executor
+    reset_counts()
+    for th in (5, 16, 64):
+        plan = svc.prepare_request("a", th)
+        assert {sh.device for sh in plan.args} <= set(mesh.devices)
+        out = svc.decode("a", th)
+        assert out.device == cards[0]
+        assert torch.equal(out, whole.decode("a", th))
+        assert (out.cpu().numpy() == syms).all()
+    pins = {k: v for k, (_, v) in ex._repl_cache.items()}
+    assert len(pins) == len(set(mesh.devices))
+    c = svc.content("a")
+    for th in (5, 16, 64):       # fresh plans reuse every card's copy
+        p = combine_plan(c.plan, th)
+        batch = WalkBatch.from_splits(build_split_states(p, c.final_states),
+                                      p.ways)
+        out = svc.session.execute(
+            svc.session.prepare(batch, c.stream, p.n_symbols))
+        assert torch.equal(out, whole.decode("a", th))
+    assert all(ex._repl_cache[k][1] is v for k, v in pins.items())
+    assert len(ex._repl_cache) == len(pins)
+    with svc.start_pipeline() as broker:
+        tickets = [broker.submit("a", th) for th in (5, 16, 64)]
+        for t in tickets:
+            assert (t.result(timeout=60).cpu().numpy() == syms).all()
+    svc.stop_pipeline()
+    assert walk_decode_pointer.plain_calls + walk_decode_symbol.plain_calls \
+        == 0

@@ -317,6 +317,8 @@ _TIMED_WARM = ["t0 = time.perf_counter()",
 # device and the ticket's ``result()`` waits on its event.  Tuning database:
 # the user cache's directory, and the platform is the impl's device type
 # (``platform_of``) where the reference asks ``jax.default_backend()``.
+# A sharded session passes its mesh's device type to ``resolve_policy``
+# as the platform (``platform_of`` knows only the device-fixed impls).
 # Tuner: the device fixes the impl (no ``interpret``), probes are timed by
 # ``_timed`` (the compile term from host times, the execute term from device
 # times), sessions run on the tuner's device, the block sweep runs on the
@@ -366,6 +368,15 @@ _FORK_HUNKS = {
               '    return "cuda" if impl == "cuda" else "cpu"']),
         (["        platform = jax.default_backend()"],
          ["        platform = platform_of(impl)"]),
+        (["def resolve_policy(policy, *, impl: str,",
+          "                   layout: str) -> tuple[BucketPolicy,"
+          " Profile | None]:"],
+         ["def resolve_policy(policy, *, impl: str, layout: str,",
+          "                   platform: str | None = None",
+          "                   ) -> tuple[BucketPolicy, Profile | None]:"]),
+        (["        prof = resolve_profile(impl=impl, layout=layout)"],
+         ["        prof = resolve_profile(impl=impl, layout=layout,"
+          " platform=platform)"]),
     ],
     "core/tuning/tuner.py": [
         ([], ["_SLEEP_CYCLES = 10_000_000"]),

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and not the test helpers it imports
-(``tests/torch_checks.py``) import jax or the JAX package ``repro``."""
+``chip_smoke.py``, not the test helpers it imports
+(``tests/torch_checks.py``) and not the port's examples import jax or the
+JAX package ``repro``."""
 
 import ast
 import os
@@ -14,7 +15,9 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 SOURCES = sorted(
     [os.path.relpath(os.path.join(d, f), ROOT)
      for d, _, files in os.walk(PORT) for f in files if f.endswith(".py")]
-    + ["chip_smoke.py", os.path.join("tests", "torch_checks.py")])
+    + ["chip_smoke.py", os.path.join("tests", "torch_checks.py"),
+       os.path.join("examples", "quickstart_torch.py"),
+       os.path.join("examples", "content_delivery_torch.py")])
 FORBIDDEN = ("jax", "repro")
 
 

@@ -6,9 +6,9 @@ The reference's ``tests/test_pipeline.py``, ported to the port's service
 the controller with synthetic clocks, broker round trips (every result equal
 to its payload), admission backpressure, the threaded stress at the
 reference's size, the capability registry, and ticket cancellation and
-timeouts.  The sharded stress and the three host-materialization tests have
-no counterpart: the port has no sharded executor and keeps streams on the
-card.
+timeouts.  The sharded stress runs the same body on a sharded service in
+``tests/test_torch_sharded.py``; the three host-materialization tests have
+no counterpart: the port keeps streams on the card.
 
 Where a piece is deterministic the port is driven beside the reference with
 the same inputs and compared field by field: the controller's estimates,
@@ -360,63 +360,10 @@ def test_broker_ingest_ticket_returns_plan_and_errors_propagate():
 def test_threaded_stress():
     """Concurrent submit during re-ingest across 3 contents, at the
     reference's size: deadlock-free, every result equal to its payload,
-    clean error counters."""
-    from repro_torch.runtime.pipeline import BrokerSaturated, ControllerConfig
-    rng = np.random.default_rng(5)
-    payloads = {f"c{i}": np.minimum(
-        rng.exponential(35.0, size=2048).astype(np.int64), 255)
-        for i in range(3)}
-    svc = _service(payloads)
-    broker = svc.start_pipeline(
-        config=ControllerConfig(max_batch=4, target_delay_ms=5.0))
-    broker.warm(list(payloads), [4, 16])
-
-    errors = []
-
-    def refresher():
-        try:
-            for _ in range(6):   # re-ingest the same payloads continuously
-                for t in [broker.submit_ingest(n, payloads[n], 16)
-                          for n in payloads]:
-                    t.result(timeout=T)
-        except Exception as e:
-            errors.append(e)
-
-    results = []
-
-    def submitter(seed):
-        rng = np.random.default_rng(seed)
-        try:
-            for _ in range(30):
-                name = f"c{rng.integers(3)}"
-                cap = [4, 16][rng.integers(2)]
-                while True:
-                    try:
-                        t = svc.submit(name, cap)
-                        break
-                    except BrokerSaturated:
-                        pass
-                results.append((name, t))
-        except Exception as e:
-            errors.append(e)
-
-    threads = [threading.Thread(target=refresher)] + [
-        threading.Thread(target=submitter, args=(s,)) for s in (1, 2)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=120)
-        assert not t.is_alive(), "stress thread deadlocked"
-    assert not errors, errors
-    broker.drain(timeout=T)
-    for name, t in results:
-        assert (t.result(timeout=T).numpy() == payloads[name]).all(), name
-    assert len(results) == 60
-    snap = broker.snapshot()
-    assert snap["dispatch_errors"] == 0 and snap["ingest_errors"] == 0
-    assert 0.0 <= snap["overlap"]["overlap_ratio"] <= 1.0
-    assert snap["wait"]["count"] >= 60
-    svc.stop_pipeline()
+    clean error counters (``torch_checks.threaded_stress``)."""
+    from torch_checks import stress_payloads, threaded_stress
+    payloads = stress_payloads()
+    threaded_stress(_service(payloads), payloads, T)
 
 
 # ----------------------------------------------------------------------

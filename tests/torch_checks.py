@@ -1,10 +1,13 @@
 """Checks shared by the port's tests and ``chip_smoke.py``: the split
 planner's inputs for a batch of contents, the round in which each planned
-slot was won, and a card session's walk beside its plain version.
+slot was won, a card session's walk beside its plain version, and the
+pipeline broker's threaded stress.
 
 Imports torch and the port only (never jax or the JAX package), so
 ``chip_smoke.py`` can import it with ``tests/`` on its path.
 """
+
+import threading
 
 import numpy as np
 import torch
@@ -83,3 +86,73 @@ def session_walk(sess, batch, stream, n_symbols):
     if plan.layout == "pointer":
         return plan.layout, [(got[0], ref[0]), (got[1], ref[1])]
     return plan.layout, [(got, ref)]
+
+
+def stress_payloads() -> dict:
+    """The threaded stress's 3 contents of 2048 symbols
+    (``tests/test_pipeline.py``'s)."""
+    rng = np.random.default_rng(5)
+    return {f"c{i}": np.minimum(
+        rng.exponential(35.0, size=2048).astype(np.int64), 255)
+        for i in range(3)}
+
+
+def threaded_stress(svc, payloads, timeout) -> dict:
+    """The stress body of ``tests/test_pipeline.py`` on a service holding
+    ``payloads`` (ingested at 16 splits): a broker (max batch 4, 5 ms
+    target delay) warmed at 4 and 16 threads; one thread re-ingests every
+    content 6 times through the broker while two submit 30 requests each.
+    No thread may deadlock or raise, every result must equal its payload,
+    and the broker must count no dispatch or ingest error.  Every wait is
+    bounded by ``timeout`` seconds.  Returns the broker's snapshot; the
+    pipeline is stopped."""
+    from repro_torch.runtime.pipeline import BrokerSaturated, ControllerConfig
+    broker = svc.start_pipeline(
+        config=ControllerConfig(max_batch=4, target_delay_ms=5.0))
+    broker.warm(list(payloads), [4, 16])
+    errors, results = [], []
+
+    def refresher():
+        try:
+            for _ in range(6):   # re-ingest the same payloads continuously
+                for t in [broker.submit_ingest(n, payloads[n], 16)
+                          for n in payloads]:
+                    t.result(timeout=timeout)
+        except Exception as e:
+            errors.append(e)
+
+    def submitter(seed):
+        rng = np.random.default_rng(seed)
+        try:
+            for _ in range(30):
+                name = f"c{rng.integers(3)}"
+                cap = [4, 16][rng.integers(2)]
+                while True:
+                    try:
+                        t = svc.submit(name, cap)
+                        break
+                    except BrokerSaturated:
+                        pass
+                results.append((name, t))
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=refresher)] + [
+        threading.Thread(target=submitter, args=(s,)) for s in (1, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=4 * timeout)
+        assert not t.is_alive(), "stress thread deadlocked"
+    assert not errors, errors
+    broker.drain(timeout=timeout)
+    for name, t in results:
+        out = t.result(timeout=timeout).cpu().numpy()
+        assert (out == payloads[name]).all(), name
+    assert len(results) == 60
+    snap = broker.snapshot()
+    assert snap["dispatch_errors"] == 0 and snap["ingest_errors"] == 0
+    assert 0.0 <= snap["overlap"]["overlap_ratio"] <= 1.0
+    assert snap["wait"]["count"] >= 60
+    svc.stop_pipeline()
+    return snap
