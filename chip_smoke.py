@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives only the port (``src/repro_torch``) — nothing of JAX or of the JAX
-package — in seven phases, each failing loudly with a non-zero exit:
+package — in eight phases, each failing loudly with a non-zero exit:
 
   1. device  — the card's name, count, and ``nvidia-smi`` name/power limit;
   2. build   — one ``nvcc`` per kernel source, started together, with each
@@ -159,7 +159,33 @@ package — in seven phases, each failing loudly with a non-zero exit:
                Then CUDA-event times: each request's sharded decode at
                k = 1, 2, 4 beside the unsharded one, and each shard's walk
                alone.  One card runs a mesh's shards one after another, so
-               these time the partition, fills and merge, not scaling.
+               these time the partition, fills and merge, not scaling;
+  8. lm      — qwen3_4b at full width and depth in bf16 (4.03 B
+               parameters from a seeded generator on the card): the port's
+               ``ServeEngine`` serves 4 prompts of 512 tokens for 32 greedy
+               tokens (cache 1024), the prefill's last logits and each
+               decode step's held to ``forward`` over the same tokens (bf16
+               tolerance 0.25; each greedy token the argmax of its step's
+               logits), then the same at float32 with 4 layers (TF32 off,
+               tolerance 2e-4); prefill and decode times (host clock to a
+               synchronize, median of 3 warm calls) beside their bounds,
+               and the peak memory; ``torch.profiler`` over a warm prefill
+               and 4 decode steps.  Then with the counts at 0 the
+               parameters' Recoil checkpoint (``CheckpointManager``, 256
+               splits) into a temporary directory: one encode-scan and one
+               planner launch per recoil leaf, no plain version; the
+               all-ones ``ln_attn`` leaf's ``.rcl`` and that of the first
+               2^20 symbols of ``w_gate`` equal to the host path's
+               (``encode_interleaved_fast`` + ``plan_splits`` +
+               ``pack_recoil``); restores at 16 and 256 threads, one
+               pointer walk per recoil leaf and no plain walk, every leaf
+               bit-equal to ``dequantize_int8(quantize_int8(leaf))`` on the
+               card; the greedy tokens of the restored parameters equal to
+               those of the round trip's; the bytes on disk, the save and
+               restore times and the pointer walk's device time on the
+               largest leaf.  The depth is cut only if the temporary
+               directory cannot hold the checkpoint (printed as CUT).
+               This path's launches join the kernel table's.
 
 Prints, before the last line, the kernel table as one JSON object and the
 card's ``nvidia-smi`` line; the last line is the JSON run summary.  Exits
@@ -169,9 +195,11 @@ non-zero without a result when no CUDA device is available.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2564,6 +2592,421 @@ def phase_shards(svc, assets, rd, re_, smi) -> dict:
     return launches
 
 
+# Phase 8: the LM served on the card from a Recoil-coded checkpoint.
+LM_ARCH = "qwen3_4b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 32
+LM_CACHE = 1024
+LM_F32_LAYERS = 4          # the float32 check: full width, 4 layers
+LM_SERVE_REPS = 3          # warm generate calls timed (median)
+# Logits against ``forward`` over the same tokens.  float32 (TF32 off): the
+# reference's own serving tolerance; both paths run the same float32
+# operations in other orders.  bf16: every product and sum rounds to bf16
+# (a relative step of 2^-8) in an order that cuBLAS picks by shape
+# (prefill 2048 rows, forward 2176, decode 4), through 36 layers; the
+# logits of this random init are of order 1 (a 0.02-scaled embedding over
+# rms-normed states of width 2560), so 0.25 is a quarter of their scale.
+LM_F32_ATOL = 2e-4
+LM_BF16_ATOL = 0.25
+CKPT_SPLITS = 256
+CKPT_THREADS = (16, 256)
+CKPT_PROBE = 1 << 20       # leading w_gate symbols held to the host path too
+BF16_DENSE_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+
+
+def _lm_tokens(vocab: int, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+
+
+def _hold_logits(lm, params, prompt, tokens, atol, label, dev) -> float:
+    """The prefill's last-position logits and every decode step's, feeding
+    the generated tokens, against ``forward`` over the same tokens; each
+    step's argmax must be the next greedy token.  Returns the largest
+    |difference|."""
+    full = torch.cat([torch.as_tensor(prompt, device=dev),
+                      torch.as_tensor(tokens, device=dev)], 1)
+    S = prompt.shape[1]
+    worst = 0.0
+    with torch.inference_mode():
+        ref = lm.forward(params, full)
+        lg, cache = lm.prefill(params, full[:, :S], cache_len=LM_CACHE)
+        for i in range(tokens.shape[1]):
+            err = float((lg.float() - ref[:, S - 1 + i].float()).abs().max())
+            worst = max(worst, err)
+            if not err <= atol:
+                fail(f"[lm] {label}: logits at position {S - 1 + i} are "
+                     f"{err} from forward's (tolerance {atol})")
+            if not torch.equal(lg.argmax(-1).to(torch.int32), full[:, S + i]):
+                fail(f"[lm] {label}: the greedy token after position "
+                     f"{S - 1 + i} is not the argmax of the step's logits")
+            lg, cache = lm.decode_step(params, cache, full[:, S + i:S + i + 1])
+        del ref
+    return worst
+
+
+def _flatten(tree) -> dict:
+    """Every leaf of a nested dict by its flat name, the checkpoint's."""
+    from repro_torch.checkpoint.manager import _flatten as flatten
+    return flatten(tree)
+
+
+def _serve_bounds(cfg, params) -> dict:
+    """The least time of the prefill (its operations over the bf16 dense
+    peak, or its bytes over the memory rate, whichever is larger) and of one
+    decode step (the weights and the filled KV slots read once, over the
+    memory rate), for this run's shapes."""
+    L, d, H, KV, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+    B, S = LM_BATCH, LM_PROMPT
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in _flatten(params).values())
+    per_layer = d * (H * hd) * 2 + d * (KV * hd) * 2 + 3 * d * cfg.d_ff
+    flops = (2 * B * S * per_layer * L                       # projections, MLP
+             + 2 * 2 * B * H * hd * (S * (S + 1) // 2) * L   # causal QK, PV
+             + 2 * B * d * cfg.padded_vocab)                  # last position
+    prefill_ms = max(flops / BF16_DENSE_FLOPS, w_bytes / HBM_BYTES_PER_S) * 1e3
+    kv_slot = L * B * KV * hd * 2 * params["embed"].element_size()
+    kv_bytes = sum((S + i + 1) * kv_slot for i in range(LM_NEW)) / LM_NEW
+    decode_ms = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    return dict(prefill_ms=prefill_ms, prefill_flops=flops,
+                decode_ms=decode_ms, weight_bytes=w_bytes,
+                kv_bytes=kv_bytes)
+
+
+def _serve(lm, params, prompt, label, atol, smi, dev) -> np.ndarray:
+    """Greedy ``ServeEngine.generate`` (first call warm-up, then the median
+    of LM_SERVE_REPS), held to ``forward``; returns the tokens."""
+    from repro_torch.runtime.serve import ServeEngine
+    eng = ServeEngine(lm, params, cache_len=LM_CACHE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tokens, _ = eng.generate(prompt, LM_NEW)
+    runs = []
+    for _ in range(LM_SERVE_REPS):
+        again, st = eng.generate(prompt, LM_NEW)
+        if not np.array_equal(again, tokens):
+            fail(f"[lm] {label}: generate is not deterministic")
+        runs.append(st)
+    peak = torch.cuda.max_memory_allocated()
+    worst = _hold_logits(lm, params, prompt, tokens, atol, label, dev)
+    b = _serve_bounds(lm.cfg, params)
+    pre = statistics.median(r.prefill_ms for r in runs)
+    dec = statistics.median(r.decode_ms_per_token for r in runs)
+    log(f"[lm] {label}: {LM_BATCH} prompts of {LM_PROMPT} tokens, "
+        f"{LM_NEW} greedy tokens; logits of the prefill and of each decode "
+        f"step within {worst:.3g} of forward's (tolerance {atol}); prefill "
+        f"{pre:.3f} ms (bound {b['prefill_ms']:.3f} ms: "
+        f"{b['prefill_flops']:.4g} FLOP at {BF16_DENSE_FLOPS:.4g}/s, or "
+        f"{b['weight_bytes']} B at {HBM_BYTES_PER_S:.4g} B/s); decode "
+        f"{dec:.3f} ms a token (bound {b['decode_ms']:.3f} ms: weights "
+        f"{b['weight_bytes']} B + KV read {b['kv_bytes']:.4g} B a step); "
+        f"peak memory {peak / 2**30:.2f} GiB; card: {smi}")
+    return tokens
+
+
+def _report_profile(prof, wall: float, label: str, per: int) -> None:
+    """One profiled window: its device busy time (the sum of its kernel and
+    copy times: they run one at a time on the stream), the device's idle
+    share of the window's wall time (which the profiler's own host work
+    inflates), the device events a ``per``, and the largest kernels and
+    host operations."""
+    events = prof.key_averages()
+    devs = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "Activity Buffer" not in e.key]
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in devs) / 1e3
+    if busy <= 0:
+        log(f"[profile] lm {label}: the profiler saw no device time: device "
+            "busy and idle share not measured")
+        return
+    n = sum(e.count for e in devs)
+    log(f"[profile] lm {label} under torch.profiler: wall {wall:.3f} ms, "
+        f"device busy {busy:.3f} ms, device idle share "
+        f"{max(0.0, 1 - busy / wall):.3f}; {n / per:.0f} device events a "
+        f"{'token' if per > 1 else 'call'}")
+    for e in sorted(devs, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"[profile]   device {e.self_device_time_total / 1e3:9.3f} ms  "
+            f"x{e.count:<5d} {e.key[:90]}")
+    for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:6]:
+        log(f"[profile]   host   {e.self_cpu_time_total / 1e3:9.3f} ms  "
+            f"x{e.count:<5d} {e.key[:90]}")
+
+
+def _profile_lm(lm, params, prompt, dev, steps: int = 4) -> None:
+    """Where the serving time goes: ``torch.profiler`` over one warm prefill
+    and over ``steps`` decode steps after it."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    toks = torch.as_tensor(prompt, device=dev)
+    with torch.inference_mode():
+        lm.prefill(params, toks, cache_len=LM_CACHE)      # warm
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t = time.perf_counter()
+            lg, cache = lm.prefill(params, toks, cache_len=LM_CACHE)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        _report_profile(prof, wall, "prefill", 1)
+        nxt = lg.argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t = time.perf_counter()
+            for _ in range(steps):
+                lg, cache = lm.decode_step(params, cache, nxt)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        _report_profile(prof, wall, f"{steps} decode steps", steps)
+
+
+def _check_host_path(mgr, d, name, leaf) -> str:
+    """The leaf's ``.rcl`` bytes against the host path: the port's
+    ``encode_interleaved_fast`` + ``plan_splits`` + ``pack_recoil`` on the
+    same symbols and model."""
+    from repro_torch.checkpoint.manager import symbol_model
+    from repro_torch.core import container, recoil
+    from repro_torch.core.vectorized import encode_interleaved_fast
+    from repro_torch.optim.compress import quantize_int8
+    q, _ = quantize_int8(leaf)
+    sym = q.reshape(-1).to(torch.int32) + 127
+    model = symbol_model(sym, mgr.rans_params)
+    host = sym.cpu().numpy().astype(np.int64)
+    enc = encode_interleaved_fast(host, model)
+    want = container.pack_recoil(enc, model,
+                                 recoil.plan_splits(enc, mgr.recoil_splits))
+    with open(os.path.join(d, name.replace("/", "__") + ".rcl"), "rb") as f:
+        got = f.read()
+    if got != want:
+        fail(f"[lm] checkpoint leaf {name}: the card's .rcl differs from the "
+             "host path's")
+    return (f"{name} ({leaf.numel()} symbols, {enc.n_words} words, "
+            f"{len(got)} B)")
+
+
+def _disk_depth(cfg, root: str) -> int:
+    """Layers of the checkpoint the temporary directory can hold: each
+    parameter takes at most a byte of rANS words plus 4 B of scale per 256,
+    and the free space must cover that with a quarter to spare."""
+    per_layer = (cfg.d_model * (cfg.n_heads + 2 * cfg.n_kv_heads)
+                 * cfg.head_dim + cfg.n_heads * cfg.head_dim * cfg.d_model
+                 + 3 * cfg.d_model * cfg.d_ff)
+    embed = cfg.padded_vocab * cfg.d_model
+    free = shutil.disk_usage(root).free / 1.25
+    per_byte = 1 + 4 / 256
+    return max(1, min(cfg.n_layers,
+                      int((free / per_byte - embed) // per_layer)))
+
+
+def phase_lm(rd, re_, smi, dev) -> dict:
+    """The LM on the card (phase 8): qwen3_4b at full width and depth in
+    bf16 served by ``ServeEngine`` and held to ``forward``; the same at
+    float32 with 4 layers; then its Recoil checkpoint saved by the card's
+    ingest kernels and restored by its walks at 16 and 256 threads, every
+    leaf bit-equal to the direct int8 round trip, and the greedy tokens of
+    the restored parameters equal to those of the round trip's.  The counts
+    are 0 before the checkpoint's save and read after each step.  Returns
+    this path's launches."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        fail("[lm] TF32 is on for float32 products")
+    cfg = get_config(LM_ARCH)
+    lm = LM(cfg, param_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t = time.perf_counter()
+    params = lm.init(gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in _flatten(params).values())
+    log(f"[lm] {LM_ARCH} at full width and depth ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to "
+        f"{cfg.padded_vocab}): {n_params} bf16 parameters (the config's "
+        f"closed form, without norms and pad rows: {cfg.n_params()}) from a "
+        f"seeded generator on the card in {time.perf_counter() - t:.1f} s")
+    prompt = _lm_tokens(cfg.vocab)
+    tokens = _serve(lm, params, prompt, "bf16 serving", LM_BF16_ATOL, smi,
+                    dev)
+    _profile_lm(lm, params, prompt, dev)
+
+    cfg4 = dataclasses.replace(cfg, n_layers=LM_F32_LAYERS)
+    lm32 = LM(cfg4, param_dtype=torch.float32)
+    gen.manual_seed(1)
+    p32 = lm32.init(gen, device=dev)
+    _serve(lm32, p32, prompt, f"float32 serving, {LM_F32_LAYERS} layers",
+           LM_F32_ATOL, smi, dev)
+    del p32, lm32
+    torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="lm_ckpt_")
+    try:
+        depth = _disk_depth(cfg, root)
+        tree = {"params": params}
+        if depth < cfg.n_layers:
+            tree = {"params": {**params, "layers": {
+                k: v[:depth] for k, v in params["layers"].items()}}}
+            log(f"[lm] CUT: the checkpoint holds {depth} of {cfg.n_layers} "
+                f"layers ({shutil.disk_usage(root).free} B free in the "
+                "temporary directory)")
+        launches = _checkpoint_round_trip(
+            tree, root, lm, prompt, rd, re_, smi, dev, depth)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[lm] phase 8: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _checkpoint_round_trip(tree, root, lm, prompt, rd, re_, smi, dev,
+                           depth) -> dict:
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import container, recoil
+    from repro_torch.core.engine import DecoderSession
+    from repro_torch.core.vectorized import WalkBatch
+    from repro_torch.core.recoil import build_split_states
+    from repro_torch.optim.compress import dequantize_int8, quantize_int8
+    mgr = CheckpointManager(root=root, codec="recoil",
+                            recoil_splits=CKPT_SPLITS, device=dev)
+    leaves = _flatten(tree)
+    torch.cuda.synchronize()
+    rd.reset_counts()
+    re_.reset_counts()
+    t = time.perf_counter()
+    step_dir = mgr.save(1, tree)
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t
+    launches = {"encode_scan": re_.encode_scan.launches,
+                "plan_splits": re_.plan_splits.launches,
+                "walk_pointer": 0, "walk_symbol": 0}
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        manifest = json.load(f)["leaves"]
+    rcl = [n for n, e in manifest.items() if e["codec"] == "recoil"]
+    if launches["encode_scan"] != len(rcl) or \
+            launches["plan_splits"] != len(rcl) or \
+            re_.encode_scan.plain_calls + re_.plan_splits.plain_calls:
+        fail(f"[lm] save: {launches} ingest launches for {len(rcl)} recoil "
+             f"leaves, plain versions {re_.encode_scan.plain_calls} + "
+             f"{re_.plan_splits.plain_calls}")
+    disk = sum(os.path.getsize(os.path.join(step_dir, f))
+               for f in os.listdir(step_dir))
+    n = sum(v.numel() for v in leaves.values())
+    log(f"[lm] checkpoint saved (recoil, {CKPT_SPLITS} splits, {depth} "
+        f"layers, {len(leaves)} leaves of which {len(rcl)} recoil, each "
+        f"ingested by encode_scan_kernel + the planner: {launches}) in "
+        f"{save_s:.1f} s: {disk} B on disk against {n * 2} B of bf16 "
+        f"({disk / (n * 2):.4f}) and {n * 4} B of the raw codec's float32 "
+        f"({disk / (n * 4):.4f}); card: {smi}")
+
+    probe = {"probe": leaves["params/layers/w_gate"].reshape(-1)[:CKPT_PROBE]}
+    probe_dir = os.path.join(root, "probe")
+    pmgr = CheckpointManager(root=probe_dir, codec="recoil",
+                             recoil_splits=CKPT_SPLITS, device=dev)
+    # ln_attn (92,160 ones) unless a cut depth leaves it under the recoil
+    # size, then the smallest recoil leaf.
+    small = "params/layers/ln_attn"
+    if small not in rcl:
+        small = min(rcl, key=lambda k: leaves[k].numel())
+    held = [_check_host_path(mgr, step_dir, small, leaves[small]),
+            _check_host_path(pmgr, pmgr.save(1, probe), "probe",
+                             probe["probe"])]
+    log(f"[lm] .rcl bytes equal to the host path's (encode_interleaved_fast "
+        f"+ plan_splits + pack_recoil): {'; '.join(held)}")
+
+    direct = {}
+    for name, leaf in leaves.items():
+        if name in rcl:
+            q, s = quantize_int8(leaf)
+            direct[name] = dequantize_int8(q, s, leaf.shape,
+                                           leaf.numel()).to(leaf.dtype)
+            del q, s
+        else:
+            direct[name] = leaf
+    restored = None
+    for th in CKPT_THREADS:
+        restored = None
+        torch.cuda.synchronize()
+        rd.reset_counts()
+        re_.reset_counts()
+        t = time.perf_counter()
+        got, step = mgr.restore(n_threads=th)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t
+        walks = (rd.walk_decode_pointer.launches,
+                 rd.walk_decode_symbol.launches)
+        plain = rd.walk_decode_pointer.plain_calls + \
+            rd.walk_decode_symbol.plain_calls
+        if step != 1 or walks != (len(rcl), 0) or plain:
+            fail(f"[lm] restore at {th} threads: step {step}, walks "
+                 f"(pointer, symbol) {walks} for {len(rcl)} recoil leaves, "
+                 f"plain {plain}")
+        launches["walk_pointer"] += walks[0]
+        flat = _flatten(got)
+        for name, want in direct.items():
+            g = flat[name]
+            if g.device != want.device or g.dtype != want.dtype or \
+                    not torch.equal(g.view(torch.int16)
+                                    if g.dtype == torch.bfloat16 else g,
+                                    want.view(torch.int16)
+                                    if want.dtype == torch.bfloat16
+                                    else want):
+                fail(f"[lm] restore at {th} threads: {name} is not the "
+                     "direct int8 round trip, bit for bit")
+        log(f"[lm] restore at {th} threads: {took:.1f} s, {len(rcl)} "
+            f"pointer walks (a container off disk has no emission log), "
+            f"every leaf bit-equal to dequantize_int8(quantize_int8(leaf)) "
+            f"on the card; card: {smi}")
+        restored = got
+        del got, flat
+
+    rd_params = restored["params"]
+    direct_params = {"embed": direct["params/embed"],
+                     "layers": {k.split("/")[-1]: v for k, v in direct.items()
+                                if k.startswith("params/layers/")},
+                     "final_norm": direct["params/final_norm"]}
+    del restored, direct
+    from repro_torch.runtime.serve import ServeEngine
+    lm_cut = lm
+    if depth < lm.cfg.n_layers:
+        lm_cut = type(lm)(dataclasses.replace(lm.cfg, n_layers=depth),
+                          param_dtype=lm.param_dtype)
+    a, _ = ServeEngine(lm_cut, rd_params, cache_len=LM_CACHE).generate(
+        prompt, LM_NEW)
+    b, _ = ServeEngine(lm_cut, direct_params, cache_len=LM_CACHE).generate(
+        prompt, LM_NEW)
+    if not np.array_equal(a, b):
+        fail("[lm] greedy tokens of the restored parameters differ from "
+             "those of the direct round trip")
+    log(f"[lm] greedy tokens of the restored parameters equal those of the "
+        f"direct int8 round trip ({a.shape[0]} x {a.shape[1]})")
+    del rd_params, direct_params
+
+    # The walk's device time on the largest leaf, after the counts were read.
+    name = max(rcl, key=lambda k: leaves[k].numel())
+    with open(os.path.join(step_dir, name.replace("/", "__") + ".rcl"),
+              "rb") as f:
+        pc = container.parse(f.read(), mgr.rans_params)
+    sess = DecoderSession(pc.model, device=dev)
+    ds = sess.upload_stream(pc.stream)
+    parts = []
+    for th in CKPT_THREADS:
+        plan = recoil.combine_plan(pc.plan, th) if th < pc.plan.n_threads \
+            else pc.plan
+        dp = sess.prepare(WalkBatch.from_splits(
+            build_split_states(plan, pc.final_states), plan.ways), ds,
+            plan.n_symbols)
+        ms, _ = cuda_ms(lambda: sess.execute(dp), 3)
+        bound = max((len(pc.stream) * 2 + plan.n_symbols * 4)
+                    / HBM_BYTES_PER_S,
+                    plan.n_symbols * OPS_PER_SYMBOL / INT32_OPS_PER_S) * 1e3
+        parts.append(f"{th} threads {ms:.3f} ms ({dp.n_steps} steps, bound "
+                     f"{bound:.3f} ms)")
+    log(f"[lm] pointer walk on the largest leaf {name} ({pc.n_symbols} "
+        f"symbols, {len(pc.stream)} words): " + "; ".join(parts) +
+        f"; card: {smi}")
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     sys.path.insert(0, SRC)
@@ -2585,7 +3028,8 @@ def main() -> int:
     phase_broker_times(svc, assets, smi)
     rows += phase_ingest_times(svc, assets, launches, errs, smi, sass)
     for phase in (phase_tuning(svc, assets, rd, re_, errs, smi),
-                  phase_shards(svc, assets, rd, re_, smi)):
+                  phase_shards(svc, assets, rd, re_, smi),
+                  phase_lm(rd, re_, smi, dev)):
         for name, n in phase.items():
             for row in rows:
                 if row["name"] == name:

@@ -1,4 +1,9 @@
-"""Content-delivery decode service.
+"""Serving runtime: the LM serving loop and the content-delivery decode
+service.
+
+``ServeEngine`` is the host-side loop of LM serving: prefill, then one
+``decode_step`` a token, greedy or temperature sampling, the prefill and
+per-token times.
 
 ``DecodeService`` is the rANS side of serving: encoded payloads registered
 once (stream resident on the device), split metadata thinned per request to
@@ -65,6 +70,80 @@ from ..core.recoil import RecoilPlan, build_split_states, combine_plan
 from ..core.vectorized import WalkBatch
 from .faultinject import NULL_INJECTOR
 from .observability import NULL_TRACE, Observability
+
+
+@dataclasses.dataclass
+class ServeStats:
+    prefill_ms: float
+    decode_ms_per_token: float
+    tokens_generated: int
+
+
+class ServeEngine:
+    """Batched prefill + decode of an :class:`~repro_torch.models.model.LM`
+    on the device its ``params`` live on.  It runs eagerly: the reference
+    jit-compiles ``prefill`` and ``decode_step``, here each call launches
+    its operations directly and there is nothing to compile."""
+
+    def __init__(self, lm, params, cache_len: int = 0):
+        self.lm = lm
+        self.params = params
+        self.cache_len = cache_len or lm.cfg.max_cache
+        self.device = params["embed"].device
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def generate(self, tokens: np.ndarray, n_tokens: int,
+                 frames: np.ndarray | None = None,
+                 temperature: float = 0.0, seed: int = 0):
+        """tokens: (B, S) prompt -> ((B, n_tokens) int32 continuations,
+        :class:`ServeStats`).
+
+        Greedy decoding (``temperature <= 0``) gives the reference's tokens.
+        Sampling draws from a ``torch.Generator`` seeded with ``seed`` on
+        the engine's device; JAX's ``PRNGKey`` stream cannot be reproduced
+        in torch, so sampled tokens differ from the reference's.  The
+        tokens stay on the device until the end, where they are copied to
+        the host once."""
+        lm, params = self.lm, self.params
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, cache = lm.prefill(
+                params, torch.as_tensor(np.asarray(tokens), device=self.device),
+                frames, cache_len=self.cache_len)
+            self._sync()
+            t1 = time.perf_counter()
+            gen = None
+            if temperature > 0:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(seed)
+            B = logits.shape[0]
+            out = torch.empty((B, n_tokens), dtype=torch.int32,
+                              device=self.device)
+            cur = self._sample(logits, temperature, gen)
+            for i in range(n_tokens):
+                out[:, i] = cur
+                logits, cache = lm.decode_step(params, cache, cur[:, None])
+                cur = self._sample(logits, temperature, gen)
+            self._sync()
+            t2 = time.perf_counter()
+        stats = ServeStats(
+            prefill_ms=(t1 - t0) * 1e3,
+            decode_ms_per_token=(t2 - t1) * 1e3 / max(n_tokens, 1),
+            tokens_generated=n_tokens * B)
+        return out.cpu().numpy(), stats
+
+    @staticmethod
+    def _sample(logits, temperature, gen):
+        if temperature <= 0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        # Gumbel-max through exponentials: argmax(logits / T - log E).
+        e = torch.empty(logits.shape, dtype=torch.float32,
+                        device=logits.device).exponential_(generator=gen)
+        return torch.argmax(logits.float() / temperature - torch.log(e),
+                            dim=-1).to(torch.int32)
 
 
 @dataclasses.dataclass

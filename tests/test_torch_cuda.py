@@ -1,5 +1,6 @@
 """The Hopper kernels against their plain torch versions, on the card: the
-walk kernels, the ingest kernels, and both paths through DecodeService.
+walk kernels, the ingest kernels, both paths through DecodeService, and
+the LM's serving loop and Recoil checkpoint against the CPU path.
 
 Marked ``cuda``: each test takes the ``cuda_device`` fixture, which skips
 when no CUDA device is present (decided inside the fixture, never while the
@@ -1220,3 +1221,86 @@ def test_sharded_decode_across_cards(cuda_device, layout, order):
     svc.stop_pipeline()
     assert walk_decode_pointer.plain_calls + walk_decode_symbol.plain_calls \
         == 0
+
+
+# ---------------------------------------------------------------------------
+# The LM and its Recoil checkpoint on the card
+# ---------------------------------------------------------------------------
+
+def _smoke_lm(arch):
+    """A float32 smoke LM with parameters from a seeded CPU generator."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import LM
+    lm = LM(get_smoke_config(arch), param_dtype=torch.float32)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    return lm, lm.init(gen, device="cpu")
+
+
+def _on(tree, device):
+    return {k: _on(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "granite_3_2b", "qwen15_32b",
+                                  "h2o_danube3_4b", "chameleon_34b"])
+@in_child
+def test_serve_engine_on_the_card_matches_cpu(cuda_device, arch):
+    """Greedy tokens of a smoke config at float32 (TF32 off): the card's
+    ``ServeEngine`` gives the CPU path's tokens."""
+    import torch
+    from repro_torch.runtime.serve import ServeEngine
+    assert not torch.backends.cuda.matmul.allow_tf32
+    lm, params = _smoke_lm(arch)
+    card = _on(params, cuda_device)
+    prompt = np.random.default_rng(1).integers(0, lm.cfg.vocab, (2, 40))
+    want, _ = ServeEngine(lm, params, cache_len=64).generate(prompt, 16)
+    got, st = ServeEngine(lm, card, cache_len=64).generate(prompt, 16)
+    np.testing.assert_array_equal(got, want)
+    assert st.decode_ms_per_token > 0
+
+
+@in_child
+def test_checkpoint_on_the_card_matches_cpu(cuda_device):
+    """A recoil checkpoint saved on the card is the CPU path's, file for
+    file; a restore on the card equals one on the CPU at 1, 4 and 64
+    threads; the card's ingest and walk kernels served every recoil leaf
+    and no plain version did."""
+    import json
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.kernels.rans_decode import rans_decode as rd
+    from repro_torch.kernels.rans_encode import rans_encode as re_
+    lm, params = _smoke_lm("qwen3_4b")
+    card = {"params": _on(params, cuda_device)}
+    with tempfile.TemporaryDirectory() as d:
+        on_card = CheckpointManager(root=os.path.join(d, "card"),
+                                    codec="recoil", recoil_splits=64)
+        on_cpu = CheckpointManager(root=os.path.join(d, "cpu"),
+                                   codec="recoil", recoil_splits=64,
+                                   device="cpu")
+        rd.reset_counts()
+        re_.reset_counts()
+        a = on_card.save(1, card)
+        assert re_.encode_scan.plain_calls + re_.plan_splits.plain_calls == 0
+        b = on_cpu.save(1, {"params": params})
+        for f in sorted(os.listdir(a)):
+            assert open(os.path.join(a, f), "rb").read() == \
+                open(os.path.join(b, f), "rb").read(), f
+        manifest = json.load(open(os.path.join(a, "manifest.json")))
+        n = sum(e["codec"] == "recoil" for e in manifest["leaves"].values())
+        assert re_.encode_scan.launches == re_.plan_splits.launches == n
+        for threads in (1, 4, 64):
+            rd.reset_counts()
+            got, _ = on_card.restore(n_threads=threads)
+            assert rd.walk_decode_pointer.launches == n
+            assert rd.walk_decode_pointer.plain_calls == 0
+            want, _ = on_card.restore(n_threads=threads, device="cpu")
+            for k, w in want["params"]["layers"].items():
+                g = got["params"]["layers"][k]
+                assert g.device.type == "cuda"
+                assert torch.equal(g.cpu(), w), k
+            assert torch.equal(got["params"]["embed"].cpu(),
+                               want["params"]["embed"])

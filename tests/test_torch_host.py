@@ -497,6 +497,35 @@ def test_copied_runtime_sources_equal_reference(module):
     assert port == ref
 
 
+CONFIG_MODULES = sorted(
+    os.path.relpath(p, os.path.join(SRC, "repro"))
+    for p in glob.glob(os.path.join(SRC, "repro", "configs", "*.py")))
+# The config registry imports each architecture's module by name, and the
+# port's names its own package.
+_CONFIG_IMPORTS = [
+    ('        importlib.import_module(f"repro.configs.{key}")',
+     '        importlib.import_module(f"repro_torch.configs.{key}")'),
+    ('    mod = importlib.import_module(f"repro.configs.{key}")',
+     '    mod = importlib.import_module(f"repro_torch.configs.{key}")')]
+
+
+@pytest.mark.parametrize("module", CONFIG_MODULES)
+@in_child
+def test_config_sources_equal_reference(module):
+    """``configs/`` is copied: every module's text equals the reference's,
+    apart from ``base.py``'s two lines that import an architecture's
+    module by name (``get_config``, ``get_smoke_config``)."""
+    ref = _source("repro", module).splitlines()
+    port = _source("repro_torch", module).splitlines()
+    match = difflib.SequenceMatcher(a=ref, b=port, autojunk=False)
+    hunks = [(line_a, line_b)
+             for op, i1, i2, j1, j2 in match.get_opcodes() if op != "equal"
+             for line_a, line_b in zip(ref[i1:i2], port[j1:j2])]
+    assert len(ref) == len(port)
+    assert hunks == (_CONFIG_IMPORTS if module.endswith("base.py") else [])
+    assert len(CONFIG_MODULES) == 12
+
+
 @in_child
 def test_builtin_tuning_profiles_equal_reference():
     """The committed CPU defaults are a byte copy of the reference's: a

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch``, not
 ``chip_smoke.py``, not the test helpers it imports
-(``tests/torch_checks.py``) and not the port's examples import jax or the
-JAX package ``repro``."""
+(``tests/torch_checks.py``) and not the port's examples import jax, the
+JAX package ``repro`` or ``ml_dtypes`` (the card machine has none of
+them)."""
 
 import ast
 import os
@@ -18,7 +19,7 @@ SOURCES = sorted(
     + ["chip_smoke.py", os.path.join("tests", "torch_checks.py"),
        os.path.join("examples", "quickstart_torch.py"),
        os.path.join("examples", "content_delivery_torch.py")])
-FORBIDDEN = ("jax", "repro")
+FORBIDDEN = ("jax", "repro", "ml_dtypes")
 
 
 def _imports(path):
@@ -47,6 +48,7 @@ def test_no_jax_or_reference_imports(path):
 
 def test_serve_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+            "sys.modules['ml_dtypes'] = None\n"
             "import repro_torch.runtime.serve, repro_torch.core.convert\n"
             "import repro_torch.kernels.rans_decode\n"
             "import repro_torch.core.encode, repro_torch.kernels.rans_encode\n"
@@ -54,6 +56,11 @@ def test_serve_imports_with_jax_blocked():
             "import repro_torch.runtime.faultinject\n"
             "import repro_torch.runtime.metrics\n"
             "import repro_torch.runtime.pipeline\n"
+            "import repro_torch.configs, repro_torch.models.model\n"
+            "import repro_torch.models.convert, repro_torch.optim.compress\n"
+            "import repro_torch.checkpoint.manager\n"
+            "from repro_torch.configs import ARCH_IDS, get_config\n"
+            "[get_config(a) for a in ARCH_IDS]\n"
             "print('ok')")
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
