@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives only the port (``src/repro_torch``) — nothing of JAX or of the JAX
-package — in eight phases, each failing loudly with a non-zero exit:
+package — in nine phases, each failing loudly with a non-zero exit:
 
   1. device  — the card's name, count, and ``nvidia-smi`` name/power limit;
   2. build   — one ``nvcc`` per kernel source, started together, with each
@@ -185,7 +185,45 @@ package — in eight phases, each failing loudly with a non-zero exit:
                restore times and the pointer walk's device time on the
                largest leaf.  The depth is cut only if the temporary
                directory cannot hold the checkpoint (printed as CUT).
-               This path's launches join the kernel table's.
+               This path's launches join the kernel table's;
+  9. lm-families — the MoE, SSM, hybrid and encoder-decoder families in
+               bf16 from a seeded generator on the card, each served by
+               ``ServeEngine`` (4 prompts, 32 greedy tokens, cache 1024)
+               and held to ``forward`` as in phase 8 (an MoE's forward
+               uncapped, capacity factor = experts, since capacity routing
+               couples tokens; its serving run keeps the config's 1.25):
+               the prefill's logits within 0.25 and each greedy token the
+               argmax of its step's logits; where these random-init models
+               amplify rounding past 0.25 at the serving depth (mamba2,
+               hymba, grok) the decode steps' difference is printed, and a
+               bf16 run at 1 layer holds every step within 0.25; seamless
+               holds every step at full depth.
+               Then a float32 twin at full width (TF32 off; mamba2 at full
+               depth, the others cut) held within a fixed tolerance per
+               family, which it must exceed with layer 0's SSM state, conv
+               tails, keys or cross keys zeroed after the prefill:
+               mamba2_2_7b at full width and depth (64 layers, 512-
+               token prompts, median of 3 warm calls, ``torch.profiler``
+               over a warm prefill and 4 decode steps); hymba_1_5b with
+               1024-token prompts, so that with its 128 meta tokens the
+               prefill ring-aligns and wraps its 1024-slot window;
+               seamless_m4t_medium with frames (4, 1024, 1024) drawn with
+               numpy from a fixed seed; grok1_314b at full width, cut to 4
+               of 64 layers (printed as CUT).  Each line gives the prefill
+               and decode times beside their bounds (per family: the SSD's
+               products and the SSM state's bytes, an MoE's top-k experts
+               and, for dropless decode, all its expert weights, the
+               encoder over its frames and the cross cache), the init's
+               and serving's peak memory.  Then, with the counts at 0,
+               mamba2_2_7b's Recoil checkpoint as in phase 8 (its
+               ``ssm_in`` is 1,732,771,840 symbols, the largest leaf any
+               phase codes): one encode scan and one planner launch per
+               recoil leaf, restores at 16 and 256 threads with one
+               pointer walk per recoil leaf, every leaf bit-equal to the
+               direct int8 round trip, the restored parameters' greedy
+               tokens equal to the round trip's, and the pointer walk's
+               device time on ``ssm_in``.  This path's launches join the
+               kernel table's.
 
 Prints, before the last line, the kernel table as one JSON object and the
 card's ``nvidia-smi`` line; the last line is the JSON run summary.  Exits
@@ -205,6 +243,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -2609,39 +2648,88 @@ LM_F32_ATOL = 2e-4
 LM_BF16_ATOL = 0.25
 CKPT_SPLITS = 256
 CKPT_THREADS = (16, 256)
-CKPT_PROBE = 1 << 20       # leading w_gate symbols held to the host path too
+CKPT_PROBE = 1 << 20       # leading symbols of the probed leaf, held to
+                           # the host path too
 BF16_DENSE_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 
 
-def _lm_tokens(vocab: int, seed: int = 0) -> np.ndarray:
+def _lm_tokens(vocab: int, seed: int = 0, length: int = LM_PROMPT
+               ) -> np.ndarray:
     return np.random.default_rng(seed).integers(
-        0, vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+        0, vocab, (LM_BATCH, length)).astype(np.int32)
 
 
-def _hold_logits(lm, params, prompt, tokens, atol, label, dev) -> float:
+def _lm_frames(cfg, seed: int = 0):
+    """Stub frame embeddings (B, F, d) drawn with numpy, for an
+    encoder-decoder; None otherwise."""
+    if not cfg.is_encdec:
+        return None
+    return np.random.default_rng(seed + 1000).normal(
+        size=(LM_BATCH, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+
+
+# Faults planted in a cache after the prefill, layer 0's leaf zeroed, to
+# show that a hold can fail: the float32 twins must move past their
+# tolerance under each one their cache carries.
+CACHE_FAULTS = {"ssm_h": "the SSM state (the SSD's carry) dropped",
+                "conv": "the conv tails not stored",
+                "k": "the keys lost",
+                "cross_k": "the cross keys lost"}
+FAULT_STEPS = 4            # decode steps a planted fault is read over
+
+
+def _hold_logits(lm, params, prompt, tokens, atol, label, dev, frames=None,
+                 hold_lm=None, tag="[lm]", held=True, faults=False) -> tuple:
     """The prefill's last-position logits and every decode step's, feeding
-    the generated tokens, against ``forward`` over the same tokens; each
-    step's argmax must be the next greedy token.  Returns the largest
-    |difference|."""
+    the generated tokens, against ``forward`` over the same tokens (of
+    ``hold_lm``, default ``lm``; meta-token positions dropped), within
+    ``atol``: the prefill always, the decode steps if ``held`` (else they
+    are measured only).  Each step's argmax must be the next greedy token.
+    With ``faults`` each of :data:`CACHE_FAULTS` that the cache carries is
+    planted after the prefill and must take a decode step's logits past
+    ``atol``.  Returns (the prefill's |difference|, each decode step's,
+    {fault: its largest})."""
     full = torch.cat([torch.as_tensor(prompt, device=dev),
                       torch.as_tensor(tokens, device=dev)], 1)
     S = prompt.shape[1]
-    worst = 0.0
-    with torch.inference_mode():
-        ref = lm.forward(params, full)
-        lg, cache = lm.prefill(params, full[:, :S], cache_len=LM_CACHE)
-        for i in range(tokens.shape[1]):
-            err = float((lg.float() - ref[:, S - 1 + i].float()).abs().max())
-            worst = max(worst, err)
-            if not err <= atol:
-                fail(f"[lm] {label}: logits at position {S - 1 + i} are "
-                     f"{err} from forward's (tolerance {atol})")
-            if not torch.equal(lg.argmax(-1).to(torch.int32), full[:, S + i]):
-                fail(f"[lm] {label}: the greedy token after position "
-                     f"{S - 1 + i} is not the argmax of the step's logits")
+    M = lm.cfg.meta_tokens
+    fr = None if frames is None else torch.as_tensor(frames, device=dev)
+
+    def run(steps, leaf=None):
+        errs, greedy = [], True
+        lg, cache = lm.prefill(params, full[:, :S], fr, cache_len=LM_CACHE)
+        if leaf is not None:
+            cache[leaf][0].zero_()
+        for i in range(steps):
+            errs.append(float((lg.float() - ref[:, S - 1 + i].float())
+                              .abs().max()))
+            greedy &= torch.equal(lg.argmax(-1).to(torch.int32),
+                                  full[:, S + i])
             lg, cache = lm.decode_step(params, cache, full[:, S + i:S + i + 1])
+        return errs, greedy, set(cache)
+
+    with torch.inference_mode():
+        ref = (hold_lm or lm).forward(params, full, frames=fr)[:, M:]
+        errs, greedy, leaves = run(tokens.shape[1])
+        planted = {leaf: max(run(FAULT_STEPS, leaf)[0][1:])
+                   for leaf in CACHE_FAULTS if faults and leaf in leaves}
         del ref
-    return worst
+    if not errs[0] <= atol:
+        fail(f"{tag} {label}: the prefill's logits are {errs[0]} from "
+             f"forward's (tolerance {atol})")
+    worst = max(errs)
+    if held and not worst <= atol:
+        fail(f"{tag} {label}: logits at position {S - 1 + errs.index(worst)} "
+             f"are {worst} from forward's (tolerance {atol})")
+    if not greedy:
+        fail(f"{tag} {label}: a greedy token is not the argmax of its step's "
+             "logits")
+    for leaf, err in planted.items():
+        if not err > atol:
+            fail(f"{tag} {label}: with {CACHE_FAULTS[leaf]} in layer 0 the "
+                 f"logits stay within {err} of forward's: the hold cannot "
+                 "see it")
+    return errs[0], errs[1:], planted
 
 
 def _flatten(tree) -> dict:
@@ -2650,57 +2738,123 @@ def _flatten(tree) -> dict:
     return flatten(tree)
 
 
-def _serve_bounds(cfg, params) -> dict:
-    """The least time of the prefill (its operations over the bf16 dense
-    peak, or its bytes over the memory rate, whichever is larger) and of one
-    decode step (the weights and the filled KV slots read once, over the
-    memory rate), for this run's shapes."""
-    L, d, H, KV, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim)
-    B, S = LM_BATCH, LM_PROMPT
-    w_bytes = sum(t.numel() * t.element_size()
-                  for t in _flatten(params).values())
-    per_layer = d * (H * hd) * 2 + d * (KV * hd) * 2 + 3 * d * cfg.d_ff
-    flops = (2 * B * S * per_layer * L                       # projections, MLP
-             + 2 * 2 * B * H * hd * (S * (S + 1) // 2) * L   # causal QK, PV
-             + 2 * B * d * cfg.padded_vocab)                  # last position
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _flatten(tree).values())
+
+
+def _serve_bounds(cfg, params, S: int) -> dict:
+    """The least time of the prefill of LM_BATCH prompts of ``S`` tokens
+    (its operations over the bf16 dense peak, or its weights over the memory
+    rate, whichever is larger) and of one decode step (the bytes it must
+    read and write once, over the memory rate), for this run's shapes.
+
+    Operations, per token of the S_tot = S + meta positions a layer runs:
+    the attention projections and the MLP (an MoE's top-k experts and its
+    router); causal attention over the keys each query sees (the window's
+    at most); an SSM's projections, conv and the SSD dual form's products
+    (per chunk of Q tokens the Q x Q scores, their product with the inputs,
+    the chunk states and the inter-chunk term); an encoder's layers over
+    its F frames (non-causal attention), and the decoder's
+    cross-attention; the last position's logits.  A decode step reads the
+    weights the decoder uses (every expert: dropless decode computes all E
+    experts on the B slots), the filled KV slots, an SSM's float32 state
+    and conv tails (read and written) and the cross keys and values."""
+    L, d, B = cfg.n_layers, cfg.d_model, LM_BATCH
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S_tot = S + cfg.meta_tokens
+    el = params["embed"].element_size()
+    w_bytes = _tree_bytes(params)
+    # what a decode step does not read: the encoder and the meta tokens
+    unread = sum(t.numel() * t.element_size()
+                 for name, t in _flatten(params).items()
+                 if name.startswith(("enc_", "meta")))
+
+    def keys_seen(n):           # (query, key) pairs of causal attention
+        w = cfg.swa_window
+        return sum(min(p + 1, w) if w else p + 1 for p in range(n))
+    attn_proj = 2 * d * H * hd + 2 * d * KV * hd        # q, o; k, v (MACs)
+    mlp = 3 * d * cfg.d_ff * (cfg.top_k or 1) + d * cfg.n_experts
+    flops = 2 * B * d * cfg.padded_vocab                  # last position
+    kv_bytes = ssm_bytes = cross_bytes = 0.0
+    if cfg.family != "ssm":
+        flops += 2 * B * S_tot * L * (attn_proj + mlp)
+        flops += 2 * 2 * B * H * hd * keys_seen(S_tot) * L
+        W = min(cfg.swa_window or LM_CACHE, LM_CACHE)
+        kv_slot = L * B * KV * hd * 2 * el
+        kv_bytes = sum(min(S_tot + i + 1, W) * kv_slot
+                       for i in range(LM_NEW)) / LM_NEW
+    if cfg.ssm_state:
+        from repro_torch.models.ssm import CHUNK as Q
+        di, N, Hs, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+            cfg.ssm_head_dim
+        C = di + 2 * N
+        proj = d * (2 * di + 2 * N + Hs) + di * d + cfg.ssm_conv * C
+        ssd = Q * N + Hs * Q * P + 2 * Hs * P * N
+        flops += 2 * B * S_tot * L * (proj + ssd)
+        ssm_bytes = 2 * (L * B * Hs * P * N * 4
+                         + L * B * (cfg.ssm_conv - 1) * C * el)
+    if cfg.is_encdec:
+        F, Le = cfg.enc_frames, cfg.enc_layers
+        flops += 2 * B * F * Le * (attn_proj + mlp)
+        flops += 2 * 2 * B * H * hd * F * F * Le
+        flops += 2 * B * (S * 2 * d * H * hd + F * 2 * d * KV * hd) * L
+        flops += 2 * 2 * B * H * hd * S * F * L
+        cross_bytes = L * B * F * KV * hd * 2 * el
     prefill_ms = max(flops / BF16_DENSE_FLOPS, w_bytes / HBM_BYTES_PER_S) * 1e3
-    kv_slot = L * B * KV * hd * 2 * params["embed"].element_size()
-    kv_bytes = sum((S + i + 1) * kv_slot for i in range(LM_NEW)) / LM_NEW
-    decode_ms = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    step_bytes = w_bytes - unread + kv_bytes + ssm_bytes + cross_bytes
+    decode_ms = step_bytes / HBM_BYTES_PER_S * 1e3
     return dict(prefill_ms=prefill_ms, prefill_flops=flops,
-                decode_ms=decode_ms, weight_bytes=w_bytes,
-                kv_bytes=kv_bytes)
+                decode_ms=decode_ms, weight_bytes=w_bytes - unread,
+                kv_bytes=kv_bytes, ssm_bytes=ssm_bytes,
+                cross_bytes=cross_bytes)
 
 
-def _serve(lm, params, prompt, label, atol, smi, dev) -> np.ndarray:
+def _serve(lm, params, prompt, label, atol, smi, dev, tag="[lm]",
+           reps=LM_SERVE_REPS, frames=None, hold_lm=None, held=True,
+           faults=False) -> np.ndarray:
     """Greedy ``ServeEngine.generate`` (first call warm-up, then the median
-    of LM_SERVE_REPS), held to ``forward``; returns the tokens."""
+    of ``reps``), held to ``forward`` (:func:`_hold_logits`); returns the
+    tokens."""
     from repro_torch.runtime.serve import ServeEngine
     eng = ServeEngine(lm, params, cache_len=LM_CACHE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tokens, _ = eng.generate(prompt, LM_NEW)
+    tokens, _ = eng.generate(prompt, LM_NEW, frames=frames)
     runs = []
-    for _ in range(LM_SERVE_REPS):
-        again, st = eng.generate(prompt, LM_NEW)
+    for _ in range(reps):
+        again, st = eng.generate(prompt, LM_NEW, frames=frames)
         if not np.array_equal(again, tokens):
-            fail(f"[lm] {label}: generate is not deterministic")
+            fail(f"{tag} {label}: generate is not deterministic")
         runs.append(st)
     peak = torch.cuda.max_memory_allocated()
-    worst = _hold_logits(lm, params, prompt, tokens, atol, label, dev)
-    b = _serve_bounds(lm.cfg, params)
+    pre_err, steps, planted = _hold_logits(
+        lm, params, prompt, tokens, atol, label, dev, frames=frames,
+        hold_lm=hold_lm, tag=tag, held=held, faults=faults)
+    if held:
+        hold = (f"logits of the prefill and of each decode step within "
+                f"{max([pre_err] + steps):.3g} of forward's (tolerance "
+                f"{atol})")
+    else:
+        hold = (f"the prefill's logits within {pre_err:.3g} of forward's "
+                f"(tolerance {atol}); the decode steps' {steps[0]:.3g} at the "
+                f"first and {max(steps):.3g} at most (measured, not held)")
+    hold += "".join(f"; with {CACHE_FAULTS[leaf]} in layer 0: {err:.3g}"
+                    for leaf, err in planted.items())
+    b = _serve_bounds(lm.cfg, params, prompt.shape[1])
     pre = statistics.median(r.prefill_ms for r in runs)
     dec = statistics.median(r.decode_ms_per_token for r in runs)
-    log(f"[lm] {label}: {LM_BATCH} prompts of {LM_PROMPT} tokens, "
-        f"{LM_NEW} greedy tokens; logits of the prefill and of each decode "
-        f"step within {worst:.3g} of forward's (tolerance {atol}); prefill "
-        f"{pre:.3f} ms (bound {b['prefill_ms']:.3f} ms: "
-        f"{b['prefill_flops']:.4g} FLOP at {BF16_DENSE_FLOPS:.4g}/s, or "
-        f"{b['weight_bytes']} B at {HBM_BYTES_PER_S:.4g} B/s); decode "
-        f"{dec:.3f} ms a token (bound {b['decode_ms']:.3f} ms: weights "
-        f"{b['weight_bytes']} B + KV read {b['kv_bytes']:.4g} B a step); "
-        f"peak memory {peak / 2**30:.2f} GiB; card: {smi}")
+    extra = "".join(f" + {name} {b[key]:.4g} B" for name, key in (
+        ("SSM state and conv tails read and written", "ssm_bytes"),
+        ("cross K/V read", "cross_bytes")) if b[key])
+    log(f"{tag} {label}: {LM_BATCH} prompts of {prompt.shape[1]} tokens"
+        f"{' with frames' if frames is not None else ''}, {LM_NEW} greedy "
+        f"tokens; {hold}; prefill {pre:.3f} ms "
+        f"(bound {b['prefill_ms']:.3f} ms: {b['prefill_flops']:.4g} FLOP at "
+        f"{BF16_DENSE_FLOPS:.4g}/s, or {_tree_bytes(params)} B at "
+        f"{HBM_BYTES_PER_S:.4g} B/s); decode {dec:.3f} ms a token (bound "
+        f"{b['decode_ms']:.3f} ms: weights {b['weight_bytes']} B + KV read "
+        f"{b['kv_bytes']:.4g} B{extra} a step); median of {reps} warm "
+        f"calls; peak memory {peak / 2**30:.2f} GiB; card: {smi}")
     return tokens
 
 
@@ -2732,12 +2886,14 @@ def _report_profile(prof, wall: float, label: str, per: int) -> None:
             f"x{e.count:<5d} {e.key[:90]}")
 
 
-def _profile_lm(lm, params, prompt, dev, steps: int = 4) -> None:
+def _profile_lm(lm, params, prompt, dev, steps: int = 4,
+                name: str = "") -> None:
     """Where the serving time goes: ``torch.profiler`` over one warm prefill
     and over ``steps`` decode steps after it."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     toks = torch.as_tensor(prompt, device=dev)
+    pre = f"{name} " if name else ""
     with torch.inference_mode():
         lm.prefill(params, toks, cache_len=LM_CACHE)      # warm
         torch.cuda.synchronize()
@@ -2746,7 +2902,7 @@ def _profile_lm(lm, params, prompt, dev, steps: int = 4) -> None:
             lg, cache = lm.prefill(params, toks, cache_len=LM_CACHE)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
-        _report_profile(prof, wall, "prefill", 1)
+        _report_profile(prof, wall, f"{pre}prefill", 1)
         nxt = lg.argmax(-1).to(torch.int32)[:, None]
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
@@ -2755,10 +2911,10 @@ def _profile_lm(lm, params, prompt, dev, steps: int = 4) -> None:
                 lg, cache = lm.decode_step(params, cache, nxt)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
-        _report_profile(prof, wall, f"{steps} decode steps", steps)
+        _report_profile(prof, wall, f"{pre}{steps} decode steps", steps)
 
 
-def _check_host_path(mgr, d, name, leaf) -> str:
+def _check_host_path(mgr, d, name, leaf, tag="[lm]") -> str:
     """The leaf's ``.rcl`` bytes against the host path: the port's
     ``encode_interleaved_fast`` + ``plan_splits`` + ``pack_recoil`` on the
     same symbols and model."""
@@ -2776,24 +2932,38 @@ def _check_host_path(mgr, d, name, leaf) -> str:
     with open(os.path.join(d, name.replace("/", "__") + ".rcl"), "rb") as f:
         got = f.read()
     if got != want:
-        fail(f"[lm] checkpoint leaf {name}: the card's .rcl differs from the "
+        fail(f"{tag} checkpoint leaf {name}: the card's .rcl differs from the "
              "host path's")
     return (f"{name} ({leaf.numel()} symbols, {enc.n_words} words, "
             f"{len(got)} B)")
 
 
-def _disk_depth(cfg, root: str) -> int:
+def _disk_depth(params, n_layers: int, root: str) -> int:
     """Layers of the checkpoint the temporary directory can hold: each
     parameter takes at most a byte of rANS words plus 4 B of scale per 256,
     and the free space must cover that with a quarter to spare."""
-    per_layer = (cfg.d_model * (cfg.n_heads + 2 * cfg.n_kv_heads)
-                 * cfg.head_dim + cfg.n_heads * cfg.head_dim * cfg.d_model
-                 + 3 * cfg.d_model * cfg.d_ff)
-    embed = cfg.padded_vocab * cfg.d_model
+    layers = params["layers"]
+    per_layer = sum(t[0].numel() for t in layers.values())
+    rest = sum(t.numel() for name, t in _flatten(params).items()
+               if not name.startswith("layers/"))
     free = shutil.disk_usage(root).free / 1.25
     per_byte = 1 + 4 / 256
-    return max(1, min(cfg.n_layers,
-                      int((free / per_byte - embed) // per_layer)))
+    return max(1, min(n_layers, int((free / per_byte - rest) // per_layer)))
+
+
+def _cut_checkpoint(lm, params, root, tag) -> tuple:
+    """The checkpoint's tree and depth: every layer unless the temporary
+    directory cannot hold them (printed as CUT)."""
+    cfg = lm.cfg
+    depth = _disk_depth(params, cfg.n_layers, root)
+    tree = {"params": params}
+    if depth < cfg.n_layers:
+        tree = {"params": {**params, "layers": {
+            k: v[:depth] for k, v in params["layers"].items()}}}
+        log(f"{tag} CUT: the checkpoint holds {depth} of {cfg.n_layers} "
+            f"layers ({shutil.disk_usage(root).free} B free in the "
+            "temporary directory)")
+    return tree, depth
 
 
 def phase_lm(rd, re_, smi, dev) -> dict:
@@ -2842,16 +3012,11 @@ def phase_lm(rd, re_, smi, dev) -> dict:
 
     root = tempfile.mkdtemp(prefix="lm_ckpt_")
     try:
-        depth = _disk_depth(cfg, root)
-        tree = {"params": params}
-        if depth < cfg.n_layers:
-            tree = {"params": {**params, "layers": {
-                k: v[:depth] for k, v in params["layers"].items()}}}
-            log(f"[lm] CUT: the checkpoint holds {depth} of {cfg.n_layers} "
-                f"layers ({shutil.disk_usage(root).free} B free in the "
-                "temporary directory)")
+        tree, depth = _cut_checkpoint(lm, params, root, "[lm]")
         launches = _checkpoint_round_trip(
-            tree, root, lm, prompt, rd, re_, smi, dev, depth)
+            tree, root, lm, prompt, rd, re_, smi, dev, depth,
+            probe_leaf="params/layers/w_gate",
+            small_leaf="params/layers/ln_attn")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"[lm] phase 8: {time.perf_counter() - t_phase:.1f} s")
@@ -2859,8 +3024,18 @@ def phase_lm(rd, re_, smi, dev) -> dict:
 
 
 def _checkpoint_round_trip(tree, root, lm, prompt, rd, re_, smi, dev,
-                           depth) -> dict:
-    from repro_torch.checkpoint.manager import CheckpointManager
+                           depth, *, probe_leaf, small_leaf,
+                           tag="[lm]") -> dict:
+    """Save ``tree`` as a Recoil checkpoint with the counts at 0 (one
+    encode scan and one planner launch per recoil leaf, no plain version);
+    hold ``small_leaf``'s ``.rcl`` and that of the first CKPT_PROBE symbols
+    of ``probe_leaf`` to the host path; restore at each of CKPT_THREADS
+    (one pointer walk per recoil leaf, no plain walk), every leaf bit-equal
+    to the direct int8 round trip; the restored parameters' greedy tokens
+    equal to the round trip's; the pointer walk's device time on the
+    largest leaf.  Returns the launches."""
+    from repro_torch.checkpoint.manager import CheckpointManager, \
+        _unflatten_into
     from repro_torch.core import container, recoil
     from repro_torch.core.engine import DecoderSession
     from repro_torch.core.vectorized import WalkBatch
@@ -2870,12 +3045,15 @@ def _checkpoint_round_trip(tree, root, lm, prompt, rd, re_, smi, dev,
                             recoil_splits=CKPT_SPLITS, device=dev)
     leaves = _flatten(tree)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     rd.reset_counts()
     re_.reset_counts()
     t = time.perf_counter()
     step_dir = mgr.save(1, tree)
     torch.cuda.synchronize()
     save_s = time.perf_counter() - t
+    save_peak = torch.cuda.max_memory_allocated()
     launches = {"encode_scan": re_.encode_scan.launches,
                 "plan_splits": re_.plan_splits.launches,
                 "walk_pointer": 0, "walk_symbol": 0}
@@ -2885,32 +3063,32 @@ def _checkpoint_round_trip(tree, root, lm, prompt, rd, re_, smi, dev,
     if launches["encode_scan"] != len(rcl) or \
             launches["plan_splits"] != len(rcl) or \
             re_.encode_scan.plain_calls + re_.plan_splits.plain_calls:
-        fail(f"[lm] save: {launches} ingest launches for {len(rcl)} recoil "
+        fail(f"{tag} save: {launches} ingest launches for {len(rcl)} recoil "
              f"leaves, plain versions {re_.encode_scan.plain_calls} + "
              f"{re_.plan_splits.plain_calls}")
     disk = sum(os.path.getsize(os.path.join(step_dir, f))
                for f in os.listdir(step_dir))
     n = sum(v.numel() for v in leaves.values())
-    log(f"[lm] checkpoint saved (recoil, {CKPT_SPLITS} splits, {depth} "
+    log(f"{tag} checkpoint saved (recoil, {CKPT_SPLITS} splits, {depth} "
         f"layers, {len(leaves)} leaves of which {len(rcl)} recoil, each "
         f"ingested by encode_scan_kernel + the planner: {launches}) in "
         f"{save_s:.1f} s: {disk} B on disk against {n * 2} B of bf16 "
         f"({disk / (n * 2):.4f}) and {n * 4} B of the raw codec's float32 "
-        f"({disk / (n * 4):.4f}); card: {smi}")
+        f"({disk / (n * 4):.4f}); peak device memory while saving "
+        f"{save_peak / 2**30:.2f} GiB; card: {smi}")
 
-    probe = {"probe": leaves["params/layers/w_gate"].reshape(-1)[:CKPT_PROBE]}
+    probe = {"probe": leaves[probe_leaf].reshape(-1)[:CKPT_PROBE]}
     probe_dir = os.path.join(root, "probe")
     pmgr = CheckpointManager(root=probe_dir, codec="recoil",
                              recoil_splits=CKPT_SPLITS, device=dev)
-    # ln_attn (92,160 ones) unless a cut depth leaves it under the recoil
-    # size, then the smallest recoil leaf.
-    small = "params/layers/ln_attn"
-    if small not in rcl:
-        small = min(rcl, key=lambda k: leaves[k].numel())
-    held = [_check_host_path(mgr, step_dir, small, leaves[small]),
+    # The constant leaf unless a cut depth leaves it under the recoil size,
+    # then the smallest recoil leaf.
+    small = small_leaf if small_leaf in rcl else \
+        min(rcl, key=lambda k: leaves[k].numel())
+    held = [_check_host_path(mgr, step_dir, small, leaves[small], tag),
             _check_host_path(pmgr, pmgr.save(1, probe), "probe",
-                             probe["probe"])]
-    log(f"[lm] .rcl bytes equal to the host path's (encode_interleaved_fast "
+                             probe["probe"], tag)]
+    log(f"{tag} .rcl bytes equal to the host path's (encode_interleaved_fast "
         f"+ plan_splits + pack_recoil): {'; '.join(held)}")
 
     direct = {}
@@ -2937,7 +3115,7 @@ def _checkpoint_round_trip(tree, root, lm, prompt, rd, re_, smi, dev,
         plain = rd.walk_decode_pointer.plain_calls + \
             rd.walk_decode_symbol.plain_calls
         if step != 1 or walks != (len(rcl), 0) or plain:
-            fail(f"[lm] restore at {th} threads: step {step}, walks "
+            fail(f"{tag} restore at {th} threads: step {step}, walks "
                  f"(pointer, symbol) {walks} for {len(rcl)} recoil leaves, "
                  f"plain {plain}")
         launches["walk_pointer"] += walks[0]
@@ -2950,9 +3128,9 @@ def _checkpoint_round_trip(tree, root, lm, prompt, rd, re_, smi, dev,
                                     want.view(torch.int16)
                                     if want.dtype == torch.bfloat16
                                     else want):
-                fail(f"[lm] restore at {th} threads: {name} is not the "
+                fail(f"{tag} restore at {th} threads: {name} is not the "
                      "direct int8 round trip, bit for bit")
-        log(f"[lm] restore at {th} threads: {took:.1f} s, {len(rcl)} "
+        log(f"{tag} restore at {th} threads: {took:.1f} s, {len(rcl)} "
             f"pointer walks (a container off disk has no emission log), "
             f"every leaf bit-equal to dequantize_int8(quantize_int8(leaf)) "
             f"on the card; card: {smi}")
@@ -2960,10 +3138,7 @@ def _checkpoint_round_trip(tree, root, lm, prompt, rd, re_, smi, dev,
         del got, flat
 
     rd_params = restored["params"]
-    direct_params = {"embed": direct["params/embed"],
-                     "layers": {k.split("/")[-1]: v for k, v in direct.items()
-                                if k.startswith("params/layers/")},
-                     "final_norm": direct["params/final_norm"]}
+    direct_params = _unflatten_into(direct)["params"]
     del restored, direct
     from repro_torch.runtime.serve import ServeEngine
     lm_cut = lm
@@ -2975,9 +3150,9 @@ def _checkpoint_round_trip(tree, root, lm, prompt, rd, re_, smi, dev,
     b, _ = ServeEngine(lm_cut, direct_params, cache_len=LM_CACHE).generate(
         prompt, LM_NEW)
     if not np.array_equal(a, b):
-        fail("[lm] greedy tokens of the restored parameters differ from "
+        fail(f"{tag} greedy tokens of the restored parameters differ from "
              "those of the direct round trip")
-    log(f"[lm] greedy tokens of the restored parameters equal those of the "
+    log(f"{tag} greedy tokens of the restored parameters equal those of the "
         f"direct int8 round trip ({a.shape[0]} x {a.shape[1]})")
     del rd_params, direct_params
 
@@ -3001,9 +3176,172 @@ def _checkpoint_round_trip(tree, root, lm, prompt, rd, re_, smi, dev,
                     plan.n_symbols * OPS_PER_SYMBOL / INT32_OPS_PER_S) * 1e3
         parts.append(f"{th} threads {ms:.3f} ms ({dp.n_steps} steps, bound "
                      f"{bound:.3f} ms)")
-    log(f"[lm] pointer walk on the largest leaf {name} ({pc.n_symbols} "
+    log(f"{tag} pointer walk on the largest leaf {name} ({pc.n_symbols} "
         f"symbols, {len(pc.stream)} words): " + "; ".join(parts) +
         f"; card: {smi}")
+    return launches
+
+
+# Phase 9: the other families, each served in bf16 from a seeded generator
+# and held to forward (LM_BF16_ATOL), and a float32 twin at full width (TF32
+# off) held at a fixed tolerance with planted cache faults.  mamba2_2_7b,
+# the slice's main path, at full width and depth, then its Recoil
+# checkpoint round trip.
+FAMILY_TAG = "[lm-families]"
+
+
+class FamilyRun(NamedTuple):
+    prompt: int                 # prompt tokens
+    reps: int                   # warm generate calls timed
+    depth: int | None           # bf16 serving depth (None: the config's)
+    cut: str                    # why the serving depth is cut
+    # The serving run holds every decode step within LM_BF16_ATOL, or
+    # (False) its prefill only and prints the steps' difference: at random
+    # init mamba2, hymba and grok (whose router flips an expert on a
+    # rounding-sized change) amplify bf16 rounding past it from 2 layers
+    # on (H100: 0.328, 1.0 and 4.18 at 2 layers; 0.031, 0.031 and 0.094
+    # at 1).
+    held: bool
+    # Further runs, (dtype, layers or None for the config's, tolerance),
+    # each holding every step; a float32 one also the planted faults.
+    holds: tuple
+
+
+# Fixed float32 tolerances of the SSM families (H100, TF32 off): the
+# chunked SSD and its recurrence round apart by 3.25e-4 (mamba2) and
+# 3.75e-4 (hymba) at 4 layers, and a cache fault moves them by 0.708 or
+# more.  At mamba2's 64 layers they round apart by 0.094, and a fault
+# moves them by 5.6 or more.
+SSM_F32_ATOL = 1e-3
+DEEP_F32_ATOL = 0.25
+BF16, F32 = torch.bfloat16, torch.float32
+FAMILY_RUNS = {
+    "mamba2_2_7b": FamilyRun(512, LM_SERVE_REPS, None, "", False, (
+        (BF16, 1, LM_BF16_ATOL), (F32, 4, SSM_F32_ATOL),
+        (F32, None, DEEP_F32_ATOL))),
+    # 1024 prompt tokens and 128 meta tokens: S_tot = 1152 exceeds the
+    # 1024-slot window, so the ring alignment and wrap run at width.
+    "hymba_1_5b": FamilyRun(1024, 1, None, "", False, (
+        (BF16, 1, LM_BF16_ATOL), (F32, 4, SSM_F32_ATOL))),
+    "seamless_m4t_medium": FamilyRun(512, 1, None, "", True, (
+        (F32, 4, LM_F32_ATOL),)),
+    "grok1_314b": FamilyRun(512, 1, 4, "64 layers are 630 GB of bf16 "
+                            "parameters against the card's 80 GB; 4 are "
+                            "41 GB", False, (
+                                (BF16, 1, LM_BF16_ATOL),
+                                (F32, 1, LM_F32_ATOL))),
+}
+FAMILY_PROFILE = "mamba2_2_7b"      # torch.profiler over its serving
+FAMILY_CKPT = "mamba2_2_7b"         # its Recoil checkpoint round trip
+
+
+def _family_lm(arch, dev, gen, seed, dtype, layers=None):
+    """A family's LM (cut to ``layers``, and as many encoder layers, if
+    given) and its parameters from ``gen`` seeded with ``seed``, with the
+    init's seconds and peak device memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(
+            cfg, n_layers=layers,
+            enc_layers=layers if cfg.is_encdec else 0)
+    lm = LM(cfg, param_dtype=dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen.manual_seed(seed)
+    t = time.perf_counter()
+    params = lm.init(gen, device=dev)
+    torch.cuda.synchronize()
+    return lm, params, time.perf_counter() - t, torch.cuda.max_memory_allocated()
+
+
+def _hold_lm(lm):
+    """The LM ``forward`` is held with: an MoE uncapped (capacity factor =
+    experts), since capacity routing couples tokens (the reference's own
+    serving test does the same); the served LM otherwise."""
+    from repro_torch.models.model import LM
+    if not lm.cfg.n_experts:
+        return None
+    return LM(dataclasses.replace(lm.cfg,
+                                  capacity_factor=float(lm.cfg.n_experts)),
+              param_dtype=lm.param_dtype)
+
+
+def phase_lm_families(rd, re_, smi, dev) -> dict:
+    """The MoE, SSM, hybrid and encoder-decoder families on the card (phase
+    9): each served by ``ServeEngine`` in bf16 and held to ``forward``, and
+    a float32 twin; mamba2_2_7b at full width and depth, with
+    ``torch.profiler`` over its serving and its Recoil checkpoint saved by
+    the card's ingest kernels and restored by its walks.  Returns this
+    path's launches."""
+    import tempfile
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        fail(f"{FAMILY_TAG} TF32 is on for float32 products")
+    torch.cuda.empty_cache()
+    tag = FAMILY_TAG
+    gen = torch.Generator(device=dev)
+    launches = {}
+    for arch, run in FAMILY_RUNS.items():
+        S, depth = run.prompt, run.depth
+        t_arch = time.perf_counter()
+        lm, params, init_s, init_peak = _family_lm(
+            arch, dev, gen, 0, torch.bfloat16, layers=depth)
+        cfg = lm.cfg
+        n_params = sum(v.numel() for v in _flatten(params).values())
+        keys = ["n_layers", "enc_layers", "d_model", "n_heads", "n_kv_heads",
+                "head_dim", "d_ff", "n_experts", "top_k", "swa_window",
+                "meta_tokens", "vocab"]
+        keys += (["capacity_factor"] if cfg.n_experts else []) + \
+            (["enc_frames"] if cfg.is_encdec else []) + \
+            (["ssm_state", "ssm_head_dim", "d_inner", "ssm_heads"]
+             if cfg.ssm_state else [])
+        shape = ", ".join(f"{k} {getattr(cfg, k)}" for k in keys
+                          if getattr(cfg, k))
+        if depth is not None:
+            log(f"{tag} CUT: {arch} at {depth} of its "
+                f"{get_config(arch).n_layers} layers, full width: {run.cut}")
+        log(f"{tag} {arch} ({cfg.family}; {shape}): {n_params} bf16 "
+            f"parameters ({_tree_bytes(params)} B) from a seeded generator "
+            f"on the card in {init_s:.1f} s; peak device memory of the init "
+            f"{init_peak / 2**30:.2f} GiB")
+        prompt = _lm_tokens(cfg.vocab, length=S)
+        frames = _lm_frames(cfg)
+        tokens = _serve(lm, params, prompt, f"{arch} bf16 serving",
+                        LM_BF16_ATOL, smi, dev, tag, run.reps, frames=frames,
+                        hold_lm=_hold_lm(lm), held=run.held)
+        if arch == FAMILY_PROFILE:
+            _profile_lm(lm, params, prompt, dev, name=arch)
+        if arch == FAMILY_CKPT:
+            root = tempfile.mkdtemp(prefix="lm_families_ckpt_")
+            try:
+                tree, cdepth = _cut_checkpoint(lm, params, root, tag)
+                for name, n in _checkpoint_round_trip(
+                        tree, root, lm, prompt, rd, re_, smi, dev, cdepth,
+                        probe_leaf="params/layers/ssm_in",
+                        small_leaf="params/layers/ln_ssm", tag=tag).items():
+                    launches[name] = launches.get(name, 0) + n
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+        del lm, params, tokens
+        torch.cuda.empty_cache()
+
+        for dtype, layers, atol in run.holds:
+            lm2, p2, _, _ = _family_lm(arch, dev, gen, int(dtype == F32),
+                                       dtype, layers=layers)
+            n = lm2.cfg.n_layers
+            label = (f"{arch} {'float32' if dtype == F32 else 'bf16'} "
+                     f"serving, {n} layers") + (
+                f" + {n} encoder layers" if lm2.cfg.is_encdec else "")
+            _serve(lm2, p2, prompt, label, atol, smi, dev, tag, 1,
+                   frames=frames, hold_lm=_hold_lm(lm2), faults=dtype == F32)
+            del lm2, p2
+            torch.cuda.empty_cache()
+        log(f"{tag} {arch}: {time.perf_counter() - t_arch:.1f} s")
+    log(f"{tag} phase 9: {time.perf_counter() - t_phase:.1f} s; card: {smi}")
     return launches
 
 
@@ -3029,7 +3367,8 @@ def main() -> int:
     rows += phase_ingest_times(svc, assets, launches, errs, smi, sass)
     for phase in (phase_tuning(svc, assets, rd, re_, errs, smi),
                   phase_shards(svc, assets, rd, re_, smi),
-                  phase_lm(rd, re_, smi, dev)):
+                  phase_lm(rd, re_, smi, dev),
+                  phase_lm_families(rd, re_, smi, dev)):
         for name, n in phase.items():
             for row in rows:
                 if row["name"] == name:

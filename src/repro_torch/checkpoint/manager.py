@@ -113,7 +113,7 @@ def symbol_model(sym: torch.Tensor, params: RansParams) -> StaticModel:
     model, from a ``torch.bincount`` on the symbols' device, with one
     pseudo-count on the next symbol when a single symbol holds all the mass
     (see the module docstring)."""
-    counts = torch.bincount(sym, minlength=ALPHABET).cpu().numpy()
+    counts = torch.bincount(sym.int(), minlength=ALPHABET).cpu().numpy()
     present = np.flatnonzero(counts)
     if len(present) == 1:
         counts[(present[0] + 1) % ALPHABET] += 1
@@ -161,7 +161,10 @@ class CheckpointManager:
     def _encode_leaf(self, t: torch.Tensor):
         """int8-quantize + Recoil-encode one float leaf on the device."""
         q, scale = quantize_int8(t.to(self._device))
-        sym = q.reshape(-1).to(torch.int32) + 127         # [0, 254]
+        # q + 127 in [0, 254], as bytes (the uint8 view wraps mod 2^8): the
+        # session makes its own int32 grid, so the leaf's symbols stay a
+        # quarter of their int32 size while it is ingested.
+        sym = q.reshape(-1).view(torch.uint8) + 127
         del q
         model = symbol_model(sym, self.rans_params)
         sess = EncoderSession(model, device=self._device)

@@ -64,6 +64,32 @@ def encode_scan(sym_gw, active_gw, f_tab, F_tab, n_bits: int, ways: int,
     return (final, zero_freq), (words, masks, ys)
 
 
+# Entries one scan call takes.  torch's CUDA cumsum of a row of
+# 1,732,771,840 flags faulted (an illegal memory access; torch 2.11, H100)
+# where one of 896,532,480 ran, so longer rows are scanned in pieces; the
+# running max over groups goes in pieces of as many grid entries, which
+# bounds its transposed copies and int64 indices to a piece.
+SCAN_PIECE = 1 << 28
+
+
+def _row_cumsum(flat: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 cumsum along dim 1 of a [B, n] tensor, in pieces of
+    at most SCAN_PIECE entries, each offset by the running total before
+    it."""
+    n = flat.shape[1]
+    if n <= SCAN_PIECE:
+        return flat.cumsum(1, dtype=torch.int32)
+    out = torch.empty(flat.shape, dtype=torch.int32, device=flat.device)
+    carry = None
+    for lo in range(0, n, SCAN_PIECE):
+        part = flat[:, lo:lo + SCAN_PIECE].cumsum(1, dtype=torch.int32)
+        if carry is not None:
+            part += carry
+        out[:, lo:lo + part.shape[1]] = part
+        carry = part[:, -1:]
+    return out
+
+
 def emission_layout(masks: torch.Tensor):
     """Cumulative structures over the [B, G, W] emit grid.
 
@@ -75,14 +101,25 @@ def emission_layout(masks: torch.Tensor):
     """
     B, G, W = masks.shape
     flat = masks.reshape(B, G * W)
-    csum = flat.cumsum(1, dtype=torch.int32)
+    csum = _row_cumsum(flat)
     groups = torch.arange(G, dtype=torch.int32, device=masks.device)
-    # The running max runs along each way's row of the transposed grid: a
-    # scan over the innermost dimension, which torch parallelizes within a
-    # row (over the group axis in place it gives each column one thread).
-    emitted = torch.where(masks, groups[:, None], -1).transpose(1, 2)
-    last = torch.cummax(emitted.contiguous(), 2).values.transpose(1, 2)
-    return csum, last.contiguous(), flat.sum(1)
+    last = torch.empty((B, G, W), dtype=torch.int32, device=masks.device)
+    step = SCAN_PIECE // W
+    carry = None
+    for lo in range(0, G, step):
+        hi = min(G, lo + step)
+        # The running max runs along each way's row of the transposed grid:
+        # a scan over the innermost dimension, which torch parallelizes
+        # within a row (over the group axis in place it gives each column
+        # one thread).
+        emitted = torch.where(masks[:, lo:hi], groups[lo:hi, None],
+                              -1).transpose(1, 2)
+        part = torch.cummax(emitted.contiguous(), 2).values
+        if carry is not None:
+            part = torch.maximum(part, carry)
+        last[:, lo:hi] = part.transpose(1, 2)
+        carry = part[:, :, -1:]
+    return csum, last, flat.sum(1)
 
 
 def compact_emissions(words, ys, masks, csum, cap: int):
@@ -91,16 +128,25 @@ def compact_emissions(words, ys, masks, csum, cap: int):
     emissions first, then zeros (``k_of_word``: int32 max, so it stays
     sorted).  ``cap`` is at least the largest content's word count."""
     B = masks.shape[0]
+    n = masks[0].numel()
     dev = masks.device
-    b, k = torch.nonzero(masks.reshape(B, -1), as_tuple=True)
-    pos = csum[b, k].long() - 1
     stream = torch.zeros((B, cap), dtype=torch.int16, device=dev)
     k_of_word = torch.full((B, cap), INT32_MAX, dtype=torch.int32,
                            device=dev)
     y_of_word = torch.zeros((B, cap), dtype=torch.int32, device=dev)
-    stream[b, pos] = words.reshape(B, -1)[b, k]
-    k_of_word[b, pos] = k.to(torch.int32)
-    y_of_word[b, pos] = ys.reshape(B, -1)[b, k]
+    # The emissions' flat (content, symbol) indices.  Each one's content,
+    # symbol and flat offset in the [B, cap] outputs are formed SCAN_PIECE
+    # emissions at a time, which bounds those int64 temporaries (a
+    # 1.73 G-symbol leaf emits 0.8 G words).
+    f = torch.nonzero(masks.reshape(-1)).squeeze(1)
+    for lo in range(0, f.numel(), SCAN_PIECE):
+        fp = f[lo:lo + SCAN_PIECE]
+        dest = csum.reshape(-1)[fp].long()
+        dest += torch.div(fp, n, rounding_mode="floor").mul_(cap)
+        dest -= 1
+        stream.view(-1)[dest] = words.reshape(-1)[fp]
+        k_of_word.view(-1)[dest] = fp.remainder(n).to(torch.int32)
+        y_of_word.view(-1)[dest] = ys.reshape(-1)[fp]
     return stream, k_of_word, y_of_word
 
 

@@ -40,8 +40,12 @@ from ..recoil import RecoilPlan, SplitPoint
 from .executors import EncodeExecutor
 from .plan import EncodePlan
 
-# Device-side H and index arithmetic is int32; 2*N must not wrap.
-MAX_SYMBOLS = 1 << 30
+# A content's symbols, below 2^31 - 2^26.  The kernels index their grids
+# in int32 (their wrappers refuse 2^31 slots or more) and form no product
+# of a symbol count in int; the planner's chain forms N + n_splits in int32,
+# and its wrapper refuses 2^26 split slots or more.  (The reference stops
+# at 2^30, so that 2 N does not wrap in its int32 device arithmetic.)
+MAX_SYMBOLS = (1 << 31) - (1 << 26)
 
 
 @dataclasses.dataclass

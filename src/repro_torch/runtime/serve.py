@@ -101,7 +101,10 @@ class ServeEngine:
         """tokens: (B, S) prompt -> ((B, n_tokens) int32 continuations,
         :class:`ServeStats`).
 
-        Greedy decoding (``temperature <= 0``) gives the reference's tokens.
+        ``frames`` (an encoder-decoder's (B, F, d_model) frame embeddings,
+        numpy or a tensor) go to ``prefill``, which moves them to the
+        params' device.  Greedy decoding (``temperature <= 0``) gives the
+        reference's tokens.
         Sampling draws from a ``torch.Generator`` seeded with ``seed`` on
         the engine's device; JAX's ``PRNGKey`` stream cannot be reproduced
         in torch, so sampled tokens differ from the reference's.  The

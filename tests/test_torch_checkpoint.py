@@ -137,6 +137,67 @@ def test_save_writes_the_reference_files(codec, dtype):
                 == {"float32"}
 
 
+@pytest.mark.parametrize("arch", ["mamba2_2_7b", "hymba_1_5b"])
+@pytest.mark.parametrize("codec", ["raw", "recoil"])
+@in_child
+def test_family_trees_save_the_reference_files(codec, arch):
+    """The SSM and hybrid smoke trees (the SSM leaves, hymba's meta tokens
+    and ``mix_*``, the zero ``D`` and ``dt_bias`` leaves) in both dtypes:
+    the manifest and every leaf file byte-equal to the reference's."""
+    for dtype in ("float32", "bfloat16"):
+        ref, tree = _trees(dtype, arch=arch)
+        assert {"D", "dt_bias", "A_log"} <= set(tree["params"]["layers"])
+        with tempfile.TemporaryDirectory() as d:
+            jdir = JManager(root=os.path.join(d, "ref"), codec=codec,
+                            recoil_splits=64).save(3, ref)
+            tdir = _manager(os.path.join(d, "port"), codec=codec,
+                            recoil_splits=64).save(3, tree)
+            want, got = _dir_bytes(jdir), _dir_bytes(tdir)
+            assert list(got) == list(want)
+            for f in want:
+                assert got[f] == want[f], f
+            manifest = json.loads(got["manifest.json"])["leaves"]
+            assert "params/layers/D" in manifest
+            if codec == "recoil":
+                assert manifest["params/layers/ssm_out"]["codec"] == "recoil"
+
+
+@pytest.mark.parametrize("arch", ["mamba2_2_7b", "hymba_1_5b"])
+@in_child
+def test_family_trees_restore_across_packages(arch):
+    """Recoil checkpoints of the SSM and hybrid smoke trees at 64 splits,
+    thinned to 4 threads: each package restores the other's bit-equal to
+    that package's own restore."""
+    for dtype in ("float32", "bfloat16"):
+        ref, tree = _trees(dtype, arch=arch)
+        with tempfile.TemporaryDirectory() as d:
+            jm = JManager(root=os.path.join(d, "ref"), codec="recoil",
+                          recoil_splits=64)
+            tm = _manager(os.path.join(d, "port"), codec="recoil",
+                          recoil_splits=64)
+            jm.save(1, ref)
+            tm.save(1, tree)
+            tportref, _ = _manager(jm.root).restore(n_threads=4)
+            _assert_trees_bit_equal(tportref, jm.restore(n_threads=4)[0])
+            jport, _ = JManager(root=tm.root).restore(n_threads=4)
+            _assert_trees_bit_equal(tm.restore(n_threads=4)[0], jport)
+
+
+@in_child
+def test_planning_range_holds_the_largest_leaf():
+    """mamba2_2_7b's ``ssm_in`` (64 x 2560 x 10576 = 1,732,771,840 symbols,
+    past the reference's 2^30) lies inside the port's ingest range, which
+    keeps N + n_splits (n_splits below the planner's 2^26 slots) and every
+    kernel grid below 2^31."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.encode.session import MAX_SYMBOLS
+    cfg = get_config("mamba2_2_7b")
+    n = cfg.n_layers * cfg.d_model * (2 * cfg.d_inner + 2 * cfg.ssm_state
+                                      + cfg.ssm_heads)
+    assert n == 1_732_771_840
+    assert 2 ** 30 < n < MAX_SYMBOLS and MAX_SYMBOLS + 2 ** 26 <= 2 ** 31
+
+
 @pytest.mark.parametrize("threads", [1, 4, 64])
 @in_child
 def test_each_package_restores_the_others_checkpoint(threads):

@@ -1244,19 +1244,28 @@ def _on(tree, device):
 
 
 @pytest.mark.parametrize("arch", ["qwen3_4b", "granite_3_2b", "qwen15_32b",
-                                  "h2o_danube3_4b", "chameleon_34b"])
+                                  "h2o_danube3_4b", "chameleon_34b",
+                                  "seamless_m4t_medium", "grok1_314b",
+                                  "llama4_scout_17b_a16e", "hymba_1_5b",
+                                  "mamba2_2_7b"])
 @in_child
 def test_serve_engine_on_the_card_matches_cpu(cuda_device, arch):
-    """Greedy tokens of a smoke config at float32 (TF32 off): the card's
-    ``ServeEngine`` gives the CPU path's tokens."""
+    """Greedy tokens of a smoke config at float32 (TF32 off), every family:
+    the card's ``ServeEngine`` gives the CPU path's tokens (the
+    encoder-decoder from the same numpy frames)."""
     import torch
     from repro_torch.runtime.serve import ServeEngine
     assert not torch.backends.cuda.matmul.allow_tf32
     lm, params = _smoke_lm(arch)
     card = _on(params, cuda_device)
-    prompt = np.random.default_rng(1).integers(0, lm.cfg.vocab, (2, 40))
-    want, _ = ServeEngine(lm, params, cache_len=64).generate(prompt, 16)
-    got, st = ServeEngine(lm, card, cache_len=64).generate(prompt, 16)
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, lm.cfg.vocab, (2, 40))
+    frames = (rng.normal(size=(2, lm.cfg.enc_frames, lm.cfg.d_model))
+              .astype(np.float32) if lm.cfg.is_encdec else None)
+    want, _ = ServeEngine(lm, params, cache_len=64).generate(
+        prompt, 16, frames=frames)
+    got, st = ServeEngine(lm, card, cache_len=64).generate(
+        prompt, 16, frames=frames)
     np.testing.assert_array_equal(got, want)
     assert st.decode_ms_per_token > 0
 

@@ -169,6 +169,38 @@ def test_ingest_matches_reference(n, n_splits):
 
 
 @in_child
+def test_emission_layout_scans_long_rows_in_pieces(monkeypatch):
+    """A row longer than ``SCAN_PIECE`` is scanned in pieces that carry the
+    running count (torch's CUDA cumsum faulted on a 1.73 G-entry row): the
+    layout, and the compaction of three contents' emissions in pieces,
+    equal the one-piece results, and an ingest through them equals the
+    reference's."""
+    import torch
+    from repro_torch.core.encode import ops
+    g = torch.Generator()
+    g.manual_seed(0)
+    masks = torch.rand((3, 37, 8), generator=g) < 0.4
+    words = torch.randint(-2**15, 2**15, masks.shape, generator=g,
+                          dtype=torch.int16)
+    ys = torch.randint(0, 2**31 - 1, masks.shape, generator=g,
+                       dtype=torch.int32)
+    whole = ops.emission_layout(masks)
+    cap = int(whole[2].max())
+    compact = ops.compact_emissions(words, ys, masks, whole[0], cap)
+    monkeypatch.setattr(ops, "SCAN_PIECE", 16)
+    for got, want in zip(ops.emission_layout(masks), whole):
+        assert torch.equal(got, want)
+    for got, want in zip(
+            ops.compact_emissions(words, ys, masks, whole[0], cap), compact):
+        assert torch.equal(got, want)
+    monkeypatch.setattr(ops, "SCAN_PIECE", 1024)
+    jm, jsess = _shared()
+    _, tsess = _port(jm)
+    syms = _symbols(16, 20_011)
+    _assert_results_equal(tsess.ingest(syms, 16), jsess.ingest(syms, 16))
+
+
+@in_child
 def test_ingest_random_parity_sweep():
     """Random sizes (ragged), rates and split counts, each with its own
     model: the port's plans and streams equal the reference's host oracle

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py``, not the test helpers it imports
+``chip_smoke.py`` or ``chip_holds.py``, not the test helpers it imports
 (``tests/torch_checks.py``) and not the port's examples import jax, the
 JAX package ``repro`` or ``ml_dtypes`` (the card machine has none of
 them)."""
@@ -16,7 +16,8 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 SOURCES = sorted(
     [os.path.relpath(os.path.join(d, f), ROOT)
      for d, _, files in os.walk(PORT) for f in files if f.endswith(".py")]
-    + ["chip_smoke.py", os.path.join("tests", "torch_checks.py"),
+    + ["chip_smoke.py", "chip_holds.py",
+       os.path.join("tests", "torch_checks.py"),
        os.path.join("examples", "quickstart_torch.py"),
        os.path.join("examples", "content_delivery_torch.py")])
 FORBIDDEN = ("jax", "repro", "ml_dtypes")
@@ -57,6 +58,7 @@ def test_serve_imports_with_jax_blocked():
             "import repro_torch.runtime.metrics\n"
             "import repro_torch.runtime.pipeline\n"
             "import repro_torch.configs, repro_torch.models.model\n"
+            "import repro_torch.models.moe, repro_torch.models.ssm\n"
             "import repro_torch.models.convert, repro_torch.optim.compress\n"
             "import repro_torch.checkpoint.manager\n"
             "from repro_torch.configs import ARCH_IDS, get_config\n"

@@ -15,15 +15,26 @@ output; it cannot hang or kill the worker.
 Set ``REPRO_TORCH_TEST_CHILD=1`` to run the bodies in the current process;
 the child sets it for itself.
 
+Under pytest-xdist every worker collects every test, so each worker handed
+one of a file's tests would run the whole file's child again.  The first
+worker to reach a file runs its child; the others wait on a lock file
+under the temporary directory, keyed by the xdist run, and read the
+outcomes it wrote (a worker that finds no outcomes, its runner having
+died, runs the child itself).
+
 The tests here check that mechanism: every port test carries the decorator,
-no port test file loads torch at import, and the child's outcomes (pass,
-skip, failure, crash) reach the worker's test.
+no port test file loads torch at import, the child's outcomes (pass,
+skip, failure, crash) reach the worker's test, and a file's child runs
+once in an xdist run.
 """
 
 import ast
+import fcntl
 import functools
 import glob
+import hashlib
 import inspect
+import json
 import os
 import subprocess
 import sys
@@ -103,12 +114,36 @@ def _parse_junit(path):
     return out
 
 
+def shared_run(config, path, nodeids, cwd):
+    """``run_child`` of a file's tests once per xdist run (see the module
+    docstring); outside xdist, directly."""
+    uid = getattr(config, "workerinput", {}).get("testrunuid")
+    if uid is None:
+        return run_child(nodeids, cwd)
+    shared = os.path.join(tempfile.gettempdir(), f"repro-torch-child-{uid}")
+    os.makedirs(shared, exist_ok=True)
+    key = os.path.join(shared, hashlib.sha1(path.encode()).hexdigest())
+    with open(key + ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # released when this returns
+        if os.path.exists(key + ".json"):
+            with open(key + ".json") as f:
+                done = json.load(f)
+            return ({name: tuple(v) for name, v in done["outcomes"].items()},
+                    done["rc"], done["output"])
+        outcomes, rc, output = run_child(nodeids, cwd)
+        with open(key + ".tmp", "w") as f:
+            json.dump({"outcomes": outcomes, "rc": rc, "output": output}, f)
+        os.replace(key + ".tmp", key + ".json")
+        return outcomes, rc, output
+
+
 def _report(request):
     path = str(request.node.path)
     if path not in _outcomes:
         nodeids = [item.nodeid for item in request.session.items
                    if str(item.path) == path]
-        _outcomes[path] = run_child(nodeids, str(request.config.rootpath))
+        _outcomes[path] = shared_run(request.config, path, nodeids,
+                                     str(request.config.rootpath))
     outcomes, rc, output = _outcomes[path]
     kind, text = outcomes.get(request.node.name, (None, None))
     if kind == "passed":
@@ -180,3 +215,25 @@ def test_child_crash_fails_without_outcomes(tmp_path):
         "import os\ndef test_dies(): os._exit(3)\n")
     outcomes, rc, _ = run_child(["test_crash.py"], str(tmp_path), timeout=120)
     assert outcomes == {} and rc == 3
+
+
+def test_a_file_runs_its_child_once_in_an_xdist_run(tmp_path, monkeypatch):
+    """Two workers of one xdist run asking for the same file: the first runs
+    the child, the second reads its outcomes; another run starts afresh."""
+    import types
+    calls = []
+
+    def fake_run_child(nodeids, cwd, timeout=CHILD_TIMEOUT_S):
+        calls.append(list(nodeids))
+        return {"test_a": ("passed", "")}, 0, "out"
+    monkeypatch.setattr(sys.modules[__name__], "run_child", fake_run_child)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    worker = types.SimpleNamespace(workerinput={"testrunuid": "run1"})
+    first = shared_run(worker, "/x/test_f.py", ["test_f.py::test_a"], "/x")
+    second = shared_run(worker, "/x/test_f.py", ["test_f.py::test_a"], "/x")
+    assert first == second == ({"test_a": ("passed", "")}, 0, "out")
+    assert len(calls) == 1
+    other = types.SimpleNamespace(workerinput={"testrunuid": "run2"})
+    shared_run(other, "/x/test_f.py", ["test_f.py::test_a"], "/x")
+    shared_run(types.SimpleNamespace(), "/x/test_f.py", [], "/x")
+    assert len(calls) == 3

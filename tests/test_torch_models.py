@@ -1,9 +1,14 @@
 """The port's LM (``repro_torch.models``, ``configs``, ``ServeEngine``)
-against the JAX package's, on the CPU.
+against the JAX package's, on the CPU, for all ten architectures.
 
 Mirrors ``tests/test_models_smoke.py``: smoke configs, the reference's
 ``LM.init`` parameters at float32 carried into the port with
-``params_from_arrays``, and the same tokens through both packages.
+``params_from_arrays``, and the same tokens (and, for the encoder-decoder,
+the same frames) through both packages.  MoE configs run uncapped
+(``capacity_factor = n_experts``) where a prefill is held to ``forward``, as
+the reference's own serving test does: capacity routing couples tokens.
+The new families' building blocks (SSD, MoE dispatch) are held in
+``tests/test_torch_families.py``.
 
 Tolerances, stated once:
 
@@ -39,9 +44,6 @@ from repro.models import layers as j_layers
 from repro.models.model import LM as JLM
 from repro.runtime.serve import ServeEngine as JServeEngine
 
-SERVED = ("qwen3_4b", "granite_3_2b", "qwen15_32b", "h2o_danube3_4b",
-          "chameleon_34b")
-NOT_SERVED = tuple(a for a in ARCH_IDS if a not in SERVED)
 ATOL = 2e-4
 INT8_ATOL = 2e-3
 BF16_ATOL = 0.05
@@ -76,18 +78,37 @@ def _tokens(vocab, B, S, seed=0):
         0, vocab, (B, S)).astype(np.int32)
 
 
+def _uncapped(arch):
+    """The config change that makes an MoE prefill exact against forward."""
+    n = j_get_smoke_config(arch).n_experts
+    return {"capacity_factor": float(n)} if n else {}
+
+
+def _frames(cfg, B, seed=0):
+    """Stub frame embeddings (B, F, d) for an encoder-decoder, else None."""
+    if not cfg.is_encdec:
+        return None
+    return np.random.default_rng(seed + 100).normal(
+        size=(B, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+
+
 def _close(t, j, atol):
     np.testing.assert_allclose(t.float().numpy(),
                                np.asarray(j, np.float32), atol=atol, rtol=0)
 
 
 def _cache_equal(tcache, jcache, atol):
+    """Every cache leaf: positions equal, the rest (keys and values, SSM
+    states and conv tails, cross keys and values) within ``atol``."""
     assert tcache["pos"] == int(jcache["pos"])
     assert sorted(tcache) == sorted(jcache)
-    np.testing.assert_array_equal(tcache["positions"].numpy(),
-                                  np.asarray(jcache["positions"]))
-    for name in ("k", "v"):
-        _close(tcache[name], jcache[name], atol)
+    for name in tcache:
+        if name == "positions":
+            np.testing.assert_array_equal(tcache[name].numpy(),
+                                          np.asarray(jcache[name]))
+        elif name != "pos":
+            assert tcache[name].shape == jcache[name].shape, name
+            _close(tcache[name], jcache[name], atol)
 
 
 # ---------------------------------------------------------------------------
@@ -201,22 +222,28 @@ def test_decode_attention_matches_reference(cache):
 # the model
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 @in_child
 def test_forward_prefill_decode_match_reference(arch):
-    """forward, prefill (logits and every cache leaf) and 3 decode steps
-    (logits and cache) within the reference's serving tolerance."""
+    """forward, the loss, prefill (logits and every cache leaf) and 3
+    decode steps (logits and cache) within the reference's serving
+    tolerance; hymba's forward carries its meta positions first."""
     import torch
-    jlm, jp, tlm, tp = _pair(arch)
+    jlm, jp, tlm, tp = _pair(arch, **_uncapped(arch))
     B, S, extra = 2, 48, 3
+    meta = jlm.cfg.meta_tokens
     toks = _tokens(jlm.cfg.vocab, B, S + extra)
-    full = tlm.forward(tp, toks)
-    _close(full, jlm.forward(jp, toks), ATOL)
-    _close(tlm.loss(tp, {"tokens": toks}), jlm.loss(jp, {"tokens": toks}),
-           ATOL)
-    lg, cache = tlm.prefill(tp, toks[:, :S])
-    jlg, jcache = jax.jit(jlm.prefill)(jp, toks[:, :S])
+    frames = _frames(jlm.cfg, B)
+    full = tlm.forward(tp, toks, frames=frames)
+    assert full.shape == (B, meta + S + extra, jlm.cfg.padded_vocab)
+    _close(full, jlm.forward(jp, toks, frames=frames), ATOL)
+    batch = {"tokens": toks, "frames": frames}
+    _close(tlm.loss(tp, batch), jlm.loss(jp, batch), ATOL)
+    full = full[:, meta:]
+    lg, cache = tlm.prefill(tp, toks[:, :S], frames)
+    jlg, jcache = jax.jit(jlm.prefill)(jp, toks[:, :S], frames)
     _close(lg, jlg, ATOL)
+    _close(lg, full[:, S - 1].numpy(), ATOL)
     _cache_equal(cache, jcache, ATOL)
     step = jax.jit(jlm.decode_step)
     for t in range(extra):
@@ -228,14 +255,19 @@ def test_forward_prefill_decode_match_reference(arch):
         _cache_equal(cache, jcache, ATOL)
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 @in_child
 def test_serve_engine_greedy_matches_reference(arch):
+    """Greedy tokens of both packages' ``ServeEngine``; the encoder-decoder
+    takes numpy frames, which the port's engine moves to its device."""
     from repro_torch.runtime.serve import ServeEngine
-    jlm, jp, tlm, tp = _pair(arch)
+    jlm, jp, tlm, tp = _pair(arch, **_uncapped(arch))
     prompt = _tokens(jlm.cfg.vocab, 2, 24, seed=1)
-    jout, jst = JServeEngine(jlm, jp, cache_len=64).generate(prompt, 8)
-    out, st = ServeEngine(tlm, tp, cache_len=64).generate(prompt, 8)
+    frames = _frames(jlm.cfg, 2, seed=1)
+    jout, jst = JServeEngine(jlm, jp, cache_len=64).generate(
+        prompt, 8, frames=frames)
+    out, st = ServeEngine(tlm, tp, cache_len=64).generate(
+        prompt, 8, frames=frames)
     np.testing.assert_array_equal(out, jout)
     assert out.dtype == jout.dtype
     assert st.tokens_generated == jst.tokens_generated == 16
@@ -369,47 +401,26 @@ def test_param_specs_and_key_order_match_reference():
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import LM
-    for arch in SERVED:
+    for arch in ARCH_IDS:
         jlm, jp, _, tp = _pair(arch)
         assert list(tp) == list(jp)
-        assert list(tp["layers"]) == list(jp["layers"])
         tlm = LM(get_smoke_config(arch), param_dtype=torch.float32)
         g = torch.Generator(device="cpu")
         g.manual_seed(0)
         own = tlm.init(g, device="cpu")
-        assert list(own["layers"]) == list(jp["layers"])
-        for name, leaf in own["layers"].items():
-            assert tuple(leaf.shape) == jp["layers"][name].shape
-        assert tlm.param_specs() == jlm.param_specs()
-
-
-@pytest.mark.parametrize("arch", NOT_SERVED)
-@in_child
-def test_unported_families_raise(arch):
-    import torch
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.models.model import LM
-    with pytest.raises(NotImplementedError, match="next model slice"):
-        LM(get_smoke_config(arch), param_dtype=torch.float32)
-
-
-@in_child
-def test_frames_and_meta_tokens_raise():
-    import torch
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.models.model import LM
-    _, _, tlm, tp = _pair("granite_3_2b")
-    toks = _tokens(tlm.cfg.vocab, 1, 8)
-    frames = np.zeros((1, 4, tlm.cfg.d_model), np.float32)
-    for call in (lambda: tlm.forward(tp, toks, frames=frames),
-                 lambda: tlm.prefill(tp, toks, frames=frames),
-                 lambda: tlm.loss(tp, {"tokens": toks, "frames": frames})):
-        with pytest.raises(NotImplementedError, match="frames"):
-            call()
-    cfg = dataclasses.replace(get_smoke_config("granite_3_2b"),
-                              meta_tokens=4)
-    with pytest.raises(NotImplementedError, match="meta tokens"):
-        LM(cfg, param_dtype=torch.float32)
+        assert list(own) == list(jp)
+        for stack in ("layers", "enc_layers"):
+            if stack not in jp:
+                continue
+            assert list(tp[stack]) == list(jp[stack])
+            assert list(own[stack]) == list(jp[stack])
+            for name, leaf in own[stack].items():
+                assert tuple(leaf.shape) == jp[stack][name].shape, name
+                assert leaf.dtype == torch.float32
+        for name in ("embed", "meta", "final_norm", "enc_final_norm"):
+            if name in jp:
+                assert tuple(own[name].shape) == jp[name].shape
+        assert tlm.param_specs() == jlm.param_specs(), arch
 
 
 @in_child
