@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives only the port (``src/repro_torch``) — nothing of JAX or of the JAX
-package — in nine phases, each failing loudly with a non-zero exit:
+package — in ten phases, each failing loudly with a non-zero exit:
 
   1. device  — the card's name, count, and ``nvidia-smi`` name/power limit;
   2. build   — one ``nvcc`` per kernel source, started together, with each
@@ -223,7 +223,36 @@ package — in nine phases, each failing loudly with a non-zero exit:
                direct int8 round trip, the restored parameters' greedy
                tokens equal to the round trip's, and the pointer walk's
                device time on ``ssm_in``.  This path's launches join the
-               kernel table's.
+               kernel table's;
+ 10. train  — granite_3_2b trained at full width and depth (40 layers,
+               bf16 params, float32 moments, remat "dots"; 8 sequences of
+               4096 tokens a step, CUT from train_4k's 256, in 8 micro-
+               batches of one: at 2 a step and the save beside it pass the
+               card's memory), with the counts at 0: 8,388,608
+               SyntheticCorpus tokens written to a Recoil shard (n = 16,
+               256 splits) by the card's encode scan and planner, read back
+               at 16 and 256 threads by its pointer walk (each equal to the
+               tokens), then batches from ``ShardedCorpus`` over it; steps
+               1-3, ``save_async`` of {params, opt} (snapshot into pinned
+               host memory) while step 4 runs, step 5; the loss after step
+               5 below step 1's, every loss and grad_norm finite and the
+               norms positive; restores at 16 and 256 threads, every leaf
+               bit-equal to the direct int8 round trip; one step resumed
+               from the restored state under ``torch.profiler``.  A float32
+               twin (full width, 2 layers, 2 x 512 tokens, 2 micro-batches)
+               on the card against the port's CPU path: loss within 1e-5
+               relative, each gradient leaf within 1e-3 of its max, AdamW
+               given the CPU's gradients within 1e-6; the same gradients
+               left undivided by accum_steps (a planted fault) must fail
+               that hold.  The cross-pod compressed step on ``(cuda:0,) *
+               2`` for 3 steps: the pods' params and moments bit-equal
+               after each, the loss falling.  ``examples/train_lm_torch.py
+               --preset tiny --steps 20`` through ``main()``.  Prints step
+               times beside the step's bound, tokens/s, the peaks of the
+               steps, of step 4 with the save and of the save after it,
+               the save and restore times, and the pointer walk's device
+               time on the shard and on the largest restored leaf.  This
+               path's launches join the kernel table's.
 
 Prints, before the last line, the kernel table as one JSON object and the
 card's ``nvidia-smi`` line; the last line is the JSON run summary.  Exits
@@ -235,6 +264,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -2446,17 +2476,17 @@ def _shard_rows(plan) -> list:
     return rows
 
 
-def _run_example(name: str) -> float:
-    """``examples/<name>.py``'s ``main()`` on the card (its lines go to
-    this log); returns its wall time in seconds."""
+def _run_example(name: str, *args, tag: str = "[shards]") -> float:
+    """``examples/<name>.py``'s ``main(*args)`` on the card (its lines go
+    to this log); returns its wall time in seconds."""
     import importlib.util
     path = os.path.join(os.path.dirname(SRC), "examples", name + ".py")
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    log(f"[shards] examples/{name}.py main() on the card:")
+    log(f"{tag} examples/{name}.py main() on the card:")
     t = time.perf_counter()
-    module.main()
+    module.main(*args)
     sys.stdout.flush()
     return time.perf_counter() - t
 
@@ -2858,7 +2888,8 @@ def _serve(lm, params, prompt, label, atol, smi, dev, tag="[lm]",
     return tokens
 
 
-def _report_profile(prof, wall: float, label: str, per: int) -> None:
+def _report_profile(prof, wall: float, label: str, per: int,
+                    tag: str = "[profile] lm") -> None:
     """One profiled window: its device busy time (the sum of its kernel and
     copy times: they run one at a time on the stream), the device's idle
     share of the window's wall time (which the profiler's own host work
@@ -2870,11 +2901,11 @@ def _report_profile(prof, wall: float, label: str, per: int) -> None:
             and "Activity Buffer" not in e.key]
     busy = sum(getattr(e, "self_device_time_total", 0) for e in devs) / 1e3
     if busy <= 0:
-        log(f"[profile] lm {label}: the profiler saw no device time: device "
+        log(f"{tag} {label}: the profiler saw no device time: device "
             "busy and idle share not measured")
         return
     n = sum(e.count for e in devs)
-    log(f"[profile] lm {label} under torch.profiler: wall {wall:.3f} ms, "
+    log(f"{tag} {label} under torch.profiler: wall {wall:.3f} ms, "
         f"device busy {busy:.3f} ms, device idle share "
         f"{max(0.0, 1 - busy / wall):.3f}; {n / per:.0f} device events a "
         f"{'token' if per > 1 else 'call'}")
@@ -3036,10 +3067,7 @@ def _checkpoint_round_trip(tree, root, lm, prompt, rd, re_, smi, dev,
     largest leaf.  Returns the launches."""
     from repro_torch.checkpoint.manager import CheckpointManager, \
         _unflatten_into
-    from repro_torch.core import container, recoil
-    from repro_torch.core.engine import DecoderSession
-    from repro_torch.core.vectorized import WalkBatch
-    from repro_torch.core.recoil import build_split_states
+    from repro_torch.core import container
     from repro_torch.optim.compress import dequantize_int8, quantize_int8
     mgr = CheckpointManager(root=root, codec="recoil",
                             recoil_splits=CKPT_SPLITS, device=dev)
@@ -3161,6 +3189,22 @@ def _checkpoint_round_trip(tree, root, lm, prompt, rd, re_, smi, dev,
     with open(os.path.join(step_dir, name.replace("/", "__") + ".rcl"),
               "rb") as f:
         pc = container.parse(f.read(), mgr.rans_params)
+    log(f"{tag} pointer walk on the largest leaf {name} ({pc.n_symbols} "
+        f"symbols, {len(pc.stream)} words): " + _walk_times(pc, dev) +
+        f"; card: {smi}")
+    return launches
+
+
+def _walk_times(pc, dev, rd=None) -> str:
+    """The pointer walk's device time on a parsed container at each of
+    CKPT_THREADS (3 warm calls behind a device sleep), beside its bound.
+    With ``rd``, the timing's launches are taken back off its count: they
+    are not the path's."""
+    before = rd.walk_decode_pointer.launches if rd is not None else None
+    from repro_torch.core import recoil
+    from repro_torch.core.engine import DecoderSession
+    from repro_torch.core.recoil import build_split_states
+    from repro_torch.core.vectorized import WalkBatch
     sess = DecoderSession(pc.model, device=dev)
     ds = sess.upload_stream(pc.stream)
     parts = []
@@ -3176,10 +3220,9 @@ def _checkpoint_round_trip(tree, root, lm, prompt, rd, re_, smi, dev,
                     plan.n_symbols * OPS_PER_SYMBOL / INT32_OPS_PER_S) * 1e3
         parts.append(f"{th} threads {ms:.3f} ms ({dp.n_steps} steps, bound "
                      f"{bound:.3f} ms)")
-    log(f"{tag} pointer walk on the largest leaf {name} ({pc.n_symbols} "
-        f"symbols, {len(pc.stream)} words): " + "; ".join(parts) +
-        f"; card: {smi}")
-    return launches
+    if rd is not None:
+        rd.walk_decode_pointer.launches = before
+    return "; ".join(parts)
 
 
 # Phase 9: the other families, each served in bf16 from a seeded generator
@@ -3345,7 +3388,486 @@ def phase_lm_families(rd, re_, smi, dev) -> dict:
     return launches
 
 
+# Phase 10: training on the card.  granite_3_2b at full width and depth
+# (its config module: remat "dots"; micro-batches of TRAIN_MICRO sequences)
+# trained from a Recoil shard of SyntheticCorpus tokens, its state saved as
+# a Recoil checkpoint while a step runs, restored and resumed; a float32
+# twin held to the port's CPU path; the cross-pod compressed step on a
+# repeated-card pod mesh.
+TRAIN_TAG = "[train]"
+TRAIN_ARCH = "granite_3_2b"
+TRAIN_SEQ = 4096           # train_4k's sequence length (configs/base.py)
+TRAIN_BATCH = 8            # CUT from train_4k's global batch of 256
+# Sequences a micro-batch: the config's 4 micro-batches would take 2, but a
+# step at 2 peaks at 59.78 GiB and the Recoil save beside it adds 20.74 GiB
+# (its largest leaf's ingest), past the card's 79.18 GiB (a run of this
+# phase ran out of memory in step 4); at 1 a step peaks at 47.82 GiB.
+TRAIN_MICRO = 1
+TRAIN_STEPS = 5            # steps 1-3, 4 under save_async, 5; then a resume
+SHARD_TOKENS = 8_388_608   # 2048 sequences of 4096 (8 train_4k batches)
+SHARD_SPLITS = 256
+SHARD_THREADS = (16, 256)
+TRAIN_PEAK_LR, TRAIN_WARMUP = 3e-4, 2
+# The float32 twin: full width, 2 layers, 2 sequences of 512, 2 micro-
+# batches, TF32 off.  The card and the CPU run the same float32 operations
+# in orders their libraries pick: the loss within 1e-5 relative, each
+# gradient leaf within 1e-3 of its max |value|, and AdamW on the card, given
+# the CPU's gradients, within 1e-6 relative of the CPU's update.
+TWIN_LAYERS, TWIN_BATCH, TWIN_SEQ, TWIN_ACCUM = 2, 2, 512, 2
+TWIN_LOSS_RTOL, TWIN_GRAD_TOL, TWIN_ADAMW_RTOL = 1e-5, 1e-3, 1e-6
+# The cross-pod step takes the same batch every step, at a learning rate at
+# which the plain step's loss falls on the twin over 3 steps (at 1e-3
+# AdamW's first sign-like steps raise it, compressed or not).
+CROSSPOD_PODS, CROSSPOD_STEPS, CROSSPOD_LR = 2, 3, 1e-4
+EXAMPLE_STEPS = 20
+
+
+def _train_bound_ms(cfg, n_params: int, tokens: int, seq: int) -> float:
+    """The least time of one train step: 6 N FLOPs a token (forward and
+    backward of the products with every parameter, the tied logits
+    included) plus the causal attention's four products a layer (QK^T and
+    PV, forward and the two of backward, each 2 S^2/2 d_model a sequence),
+    over the bf16 dense peak."""
+    attn = 3 * 2 * 2 * (seq * seq / 2) * cfg.n_heads * cfg.head_dim \
+        * cfg.n_layers * (tokens // seq)
+    return (6 * n_params * tokens + attn) / BF16_DENSE_FLOPS * 1e3
+
+
+def _host_round_trip(tree) -> dict:
+    """Each recoil-coded leaf's int8 blocks and scales, quantized on the
+    card and kept on the host; the other leaves copied to the host.  The
+    direct int8 round trip of the tree, without holding it on the card."""
+    from repro_torch.checkpoint.manager import RECOIL_MIN_SIZE
+    from repro_torch.optim.compress import quantize_int8
+    out = {}
+    for name, leaf in _flatten(tree).items():
+        if leaf.is_floating_point() and leaf.numel() >= RECOIL_MIN_SIZE:
+            q, s = quantize_int8(leaf)
+            out[name] = ("recoil", q.cpu(), s.cpu(), leaf.dtype,
+                         tuple(leaf.shape))
+            del q, s
+        else:
+            out[name] = ("raw", leaf.to("cpu", copy=True))
+    return out
+
+
+def _hold_restored(got, direct, dev, label) -> None:
+    """Every restored leaf bit-equal to the direct int8 round trip."""
+    from repro_torch.optim.compress import dequantize_int8
+    flat = _flatten(got)
+    if sorted(flat) != sorted(direct):
+        fail(f"{TRAIN_TAG} {label}: restored leaves {sorted(flat)[:4]}... "
+             f"are not the saved tree's")
+    for name, entry in direct.items():
+        g = flat[name]
+        if entry[0] == "recoil":
+            _, q, s, dtype, shape = entry
+            want = dequantize_int8(q.to(dev), s.to(dev), shape,
+                                   math.prod(shape)).to(dtype)
+        else:
+            want = entry[1].to(dev)
+        bits = (lambda t: t.view(torch.int16)
+                if t.dtype == torch.bfloat16 else t)
+        if g.device != want.device or g.dtype != want.dtype or \
+                not torch.equal(bits(g), bits(want)):
+            fail(f"{TRAIN_TAG} {label}: {name} is not the direct int8 round "
+                 "trip, bit for bit")
+        del want
+
+
+def _timed_step(step_fn, state, batch):
+    """One train step, host clock to a synchronize; returns (state,
+    metrics as floats, seconds)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, m = step_fn(state, batch)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t
+    return state, {k: float(v) for k, v in m.items()}, s
+
+
+def _twin(dev, corpus, smi) -> None:
+    """The float32 twin on the card against the port's CPU path, with the
+    planted fault; then the cross-pod step on a repeated-card pod mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import (AdamWConfig, apply_adamw,
+                                         init_moments, tree_leaves,
+                                         tree_map)
+    from repro_torch.optim.schedule import constant
+    from repro_torch.runtime.train import (init_state, make_grad_fn,
+                                           make_compressed_crosspod_step,
+                                           make_train_step, podify_state)
+    tag = TRAIN_TAG
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        fail(f"{tag} TF32 is on for float32 products")
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TWIN_LAYERS)
+    lm = LM(cfg, param_dtype=torch.float32)
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    cpu_params = lm.init(gen, device="cpu")
+    card_params = tree_map(lambda t: t.to(dev), cpu_params)
+    toks = corpus.batch(0)["tokens"][:TWIN_BATCH, :TWIN_SEQ]
+    grad_fn = make_grad_fn(lm.loss, TWIN_ACCUM)
+    t = time.perf_counter()
+    loss_c, g_cpu = grad_fn(cpu_params, {"tokens": torch.from_numpy(toks)})
+    cpu_s = time.perf_counter() - t
+    loss_d, g_card = grad_fn(card_params, {"tokens": torch.from_numpy(
+        toks).to(dev)})
+    loss_rel = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+
+    def grad_err(grads):
+        worst = 0.0
+        for a, b in zip(tree_leaves(grads), tree_leaves(g_cpu)):
+            scale = float(b.abs().max()) or 1.0
+            worst = max(worst, float((a.cpu() - b).abs().max()) / scale)
+        return worst
+    g_rel = grad_err(g_card)
+    planted = grad_err(tree_map(lambda g: g * TWIN_ACCUM, g_card))
+    log(f"{tag} float32 twin ({TRAIN_ARCH} at full width, {TWIN_LAYERS} "
+        f"layers, {TWIN_BATCH} x {TWIN_SEQ} tokens, {TWIN_ACCUM} micro-"
+        f"batches, TF32 off): loss {float(loss_d):.6f} on the card, "
+        f"{float(loss_c):.6f} on the CPU ({cpu_s:.1f} s), relative "
+        f"{loss_rel:.3e} (tolerance {TWIN_LOSS_RTOL:g}); gradients: largest "
+        f"leaf difference {g_rel:.3e} of the leaf's max |value| "
+        f"(tolerance {TWIN_GRAD_TOL:g}); card: {smi}")
+    log(f"{tag} planted fault (the accumulated gradient not divided by "
+        f"accum_steps = {TWIN_ACCUM}): the gradient hold reads {planted:.3e} "
+        f"against its tolerance {TWIN_GRAD_TOL:g}")
+    if not loss_rel <= TWIN_LOSS_RTOL:
+        fail(f"{tag} float32 twin: loss {loss_rel:.3e} relative")
+    if not g_rel <= TWIN_GRAD_TOL:
+        fail(f"{tag} float32 twin: a gradient leaf off by {g_rel:.3e}")
+    if not planted > TWIN_GRAD_TOL:
+        fail(f"{tag} the planted fault passed the gradient hold "
+             f"({planted:.3e})")
+    lr = torch.tensor(TRAIN_PEAK_LR)
+    opt_c = init_moments(cpu_params)
+    want_p, want_o, want_m = apply_adamw(cpu_params, g_cpu, opt_c, lr,
+                                         AdamWConfig())
+    got_p, got_o, got_m = apply_adamw(
+        card_params, tree_map(lambda g: g.to(dev), g_cpu),
+        init_moments(card_params), lr.to(dev), AdamWConfig())
+    worst = 0.0
+    for a, b in zip(tree_leaves(got_p) + tree_leaves(got_o),
+                    tree_leaves(want_p) + tree_leaves(want_o)):
+        b = b.float()
+        worst = max(worst, float((a.cpu().float() - b).abs().max())
+                    / (float(b.abs().max()) or 1.0))
+    log(f"{tag} apply_adamw on the card given the CPU's gradients: params "
+        f"and moments within {worst:.3e} relative of the CPU's update "
+        f"(tolerance {TWIN_ADAMW_RTOL:g}); grad_norm "
+        f"{float(got_m['grad_norm']):.6f} / "
+        f"{float(want_m['grad_norm']):.6f}")
+    if not worst <= TWIN_ADAMW_RTOL:
+        fail(f"{tag} apply_adamw on the card off by {worst:.3e}")
+    state, m, s = _timed_step(make_train_step(
+        lm.loss, constant(TRAIN_PEAK_LR), accum_steps=TWIN_ACCUM),
+        init_state(card_params), {"tokens": toks})
+    if abs(m["loss"] - float(loss_d)) > 0:
+        fail(f"{tag} the twin's train step took loss {m['loss']} where its "
+             f"gradient function took {float(loss_d)}")
+    del g_cpu, g_card, want_p, want_o, got_p, got_o, state, cpu_params
+
+    mesh = make_pod_mesh(devices=(dev,) * CROSSPOD_PODS)
+    pods = podify_state(init_state(card_params), mesh)
+    step = make_compressed_crosspod_step(lm.loss, constant(CROSSPOD_LR),
+                                         mesh, accum_steps=TWIN_ACCUM)
+    batch = {"tokens": corpus.batch(1)["tokens"][
+        :CROSSPOD_PODS * TWIN_BATCH, :TWIN_SEQ]}
+    losses, times = [], []
+    for _ in range(CROSSPOD_STEPS):
+        pods, m, s = _timed_step(step, pods, batch)
+        losses.append(m["loss"])
+        times.append(s)
+        for part in ("params", "opt"):
+            for a, b in zip(tree_leaves(getattr(pods[0], part)),
+                            tree_leaves(getattr(pods[1], part))):
+                if not torch.equal(a, b):
+                    fail(f"{tag} cross-pod: the pods' {part} differ")
+    log(f"{tag} cross-pod compressed step on {CROSSPOD_PODS} pods "
+        f"({dev},) * {CROSSPOD_PODS} (the float32 twin, {TWIN_BATCH} rows a "
+        f"pod, int8 + EF sync): losses {[round(x, 5) for x in losses]}, "
+        f"every step's pod copies of params and moments bit-equal; step "
+        f"{statistics.median(times) * 1e3:.1f} ms (median); card: {smi}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        fail(f"{tag} cross-pod: the loss did not fall: {losses}")
+    del pods, card_params
+    torch.cuda.empty_cache()
+
+
+def phase_train(rd, re_, smi, dev) -> dict:
+    """Training on the card (phase 10): granite_3_2b at full width and
+    depth, trained from a Recoil shard, checkpointed while a step runs,
+    restored bit-equal to the direct int8 round trip and resumed; the float32
+    twin with its planted fault; the cross-pod step; the example.  The
+    counts are 0 before the shard's write and read after the resume.
+    Returns this path's launches."""
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import container
+    from repro_torch.core.rans import RansParams
+    from repro_torch.data.pipeline import (DataConfig, RecoilShardStore,
+                                           ShardedCorpus, SyntheticCorpus)
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.optim.schedule import cosine_with_warmup
+    from repro_torch.runtime.train import (TrainState, init_state,
+                                           make_train_step)
+    tag = TRAIN_TAG
+    t_phase = time.perf_counter()
+
+    def stamp(what):
+        log(f"{tag} {time.perf_counter() - t_phase:.1f} s into the phase: "
+            f"{what}")
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    root = tempfile.mkdtemp(prefix="train_")
+    try:
+        rd.reset_counts()
+        re_.reset_counts()
+        # ---- data: a Recoil shard written and read on the card
+        t = time.perf_counter()
+        raw = SyntheticCorpus(DataConfig(
+            vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+            global_batch=SHARD_TOKENS // TRAIN_SEQ)).batch(0)["tokens"]
+        gen_s = time.perf_counter() - t
+        store = RecoilShardStore(os.path.join(root, "shards"),
+                                 params=RansParams(n_bits=16, ways=32),
+                                 device=dev)
+        t = time.perf_counter()
+        info = store.write_shard("train_4k", raw, max_splits=SHARD_SPLITS)
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t
+        if (re_.encode_scan.launches, re_.plan_splits.launches) != (1, 1) \
+                or re_.encode_scan.plain_calls + re_.plan_splits.plain_calls:
+            plain = re_.encode_scan.plain_calls + re_.plan_splits.plain_calls
+            fail(f"{tag} shard write: encode scan {re_.encode_scan.launches},"
+                 f" planner {re_.plan_splits.launches} launches, plain "
+                 f"{plain}")
+        flat = raw.reshape(-1)
+        reads = []
+        for th in SHARD_THREADS:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            back = store.read_shard("train_4k", n_threads=th)
+            reads.append(f"{th} threads {time.perf_counter() - t:.3f} s")
+            if not np.array_equal(back, flat):
+                fail(f"{tag} shard read at {th} threads differs from the "
+                     "tokens")
+        with open(store._path("train_4k"), "rb") as f:
+            pc = container.parse(f.read(), store.params)
+        log(f"{tag} shard: {SHARD_TOKENS} SyntheticCorpus tokens (vocab "
+            f"{cfg.vocab}, max {int(flat.max())}, {len(np.unique(flat))} "
+            f"symbols; drawn in {gen_s:.1f} s) written at n = 16, W = 32, "
+            f"{info['splits']} splits by the card's encode scan and planner "
+            f"in {write_s:.2f} s: {info['bytes']} B "
+            f"({info['bytes'] / (2 * SHARD_TOKENS):.4f} of 16-bit tokens); "
+            f"reads at "
+            f"{', '.join(reads)}, each equal to the tokens; pointer walk: "
+            f"{_walk_times(pc, dev, rd)}; card: {smi}")
+        corpus = ShardedCorpus(store, ["train_4k"], DataConfig(
+            vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH),
+            n_threads=SHARD_THREADS[-1])
+
+        # ---- the model at full width and depth
+        stamp("the model")
+        lm = LM(cfg, param_dtype=torch.bfloat16)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = lm.init(gen, device=dev)
+        n_params = sum(v.numel() for v in tree_leaves(params))
+        state = init_state(params)
+        del params
+        state_bytes = _tree_bytes({"p": state.params, "o": state.opt})
+        log(f"{tag} {TRAIN_ARCH} at full width and depth ({cfg.n_layers} "
+            f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+            f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} "
+            f"padded to {cfg.padded_vocab}; remat {cfg.remat!r}, "
+            f"train_accum {cfg.train_accum}): {n_params} bf16 parameters "
+            f"and float32 moments, {state_bytes} B on the card")
+        accum = TRAIN_BATCH // TRAIN_MICRO
+        log(f"{tag} CUT: the global batch is {TRAIN_BATCH} sequences of "
+            f"{TRAIN_SEQ} (train_4k's is 256): one card's share; "
+            f"{TRAIN_MICRO} sequence a micro-batch, {accum} micro-batches "
+            f"(the config's {cfg.train_accum} would take "
+            f"{TRAIN_BATCH // cfg.train_accum}: a step and the save beside "
+            "it would not fit the card)")
+        total = TRAIN_STEPS + 1
+        step_fn = make_train_step(
+            lm.loss, cosine_with_warmup(TRAIN_PEAK_LR, TRAIN_WARMUP, total),
+            accum_steps=accum, donate=True)
+        bound = _train_bound_ms(cfg, n_params, tokens, TRAIN_SEQ)
+        hist, times = [], {}
+
+        def record(i, m, s):
+            hist.append(m)
+            times[i] = s
+            log(f"{tag} step {i}: loss {m['loss']:.5f}, grad_norm "
+                f"{m['grad_norm']:.5f}, lr {m['lr']:.3e}, {s * 1e3:.1f} ms "
+                f"({tokens / s:.0f} tokens/s; bound {bound:.1f} ms)")
+        torch.cuda.reset_peak_memory_stats()
+        for i in (1, 2, 3):
+            state, m, s = _timed_step(step_fn, state,
+                                      corpus.batch(i - 1))
+            record(i, m, s)
+        step_peak = torch.cuda.max_memory_allocated()
+        log(f"{tag} peak device memory of steps 1-3: "
+            f"{step_peak / 2**30:.2f} GiB")
+
+        # ---- step 4 under save_async of the state after step 3
+        stamp("the direct int8 round trip of the state after step 3")
+        direct = _host_round_trip({"params": state.params,
+                                   "opt": state.opt})
+        mgr = CheckpointManager(root=os.path.join(root, "ckpt"),
+                                codec="recoil", recoil_splits=CKPT_SPLITS,
+                                device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_save = time.perf_counter()
+        mgr.save_async(3, {"params": state.params, "opt": state.opt})
+        snap_s = time.perf_counter() - t_save
+        state, m, s = _timed_step(step_fn, state, corpus.batch(3))
+        record(4, m, s)
+        overlap_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mgr.wait()
+        save_s = time.perf_counter() - t_save
+        tail_peak = torch.cuda.max_memory_allocated()
+        step_dir = mgr._step_dir(3)
+        disk = sum(os.path.getsize(os.path.join(step_dir, f))
+                   for f in os.listdir(step_dir))
+        n_state = sum(e[1].numel() if e[0] == "raw" else math.prod(e[4])
+                      for e in direct.values())
+        log(f"{tag} save_async of {{params, opt}} after step 3 (recoil, "
+            f"{CKPT_SPLITS} splits, {len(direct)} leaves): snapshot into "
+            f"pinned host memory {snap_s:.2f} s, save {save_s:.1f} s wall "
+            f"while step 4 ran, {disk} B on disk ({disk / n_state:.4f} B a "
+            f"value); peak device memory: the steps {step_peak / 2**30:.2f} "
+            f"GiB, step 4 with the save beside it {overlap_peak / 2**30:.2f} "
+            f"GiB ({(overlap_peak - step_peak) / 2**30:.2f} above the "
+            f"steps'), the save after step 4 {tail_peak / 2**30:.2f} GiB "
+            f"(state {state_bytes / 2**30:.2f} GiB); card: {smi}")
+        state, m, s = _timed_step(step_fn, state, corpus.batch(4))
+        record(5, m, s)
+        losses = [h["loss"] for h in hist]
+        norms = [h["grad_norm"] for h in hist]
+        if not all(math.isfinite(x) for x in losses + norms) or \
+                min(norms) <= 0 or not losses[-1] < losses[0]:
+            fail(f"{tag} training: losses {losses}, grad norms {norms}")
+        warm = [times[2], times[3]]
+        med = statistics.median(warm)
+        log(f"{tag} {TRAIN_STEPS} steps: loss {losses[0]:.5f} -> "
+            f"{losses[-1]:.5f}; warm step (median of steps 2, 3) "
+            f"{med * 1e3:.1f} ms, {tokens / med:.0f} tokens/s, bound "
+            f"{bound:.1f} ms ({med * 1e3 / bound:.1f}x: 6 N tokens + the "
+            f"causal attention's products at {BF16_DENSE_FLOPS / 1e12:.0f} "
+            f"TFLOP/s); card: {smi}")
+        stamp("the restores")
+        del state
+        torch.cuda.empty_cache()
+
+        # ---- restore at 16 and 256 threads, then resume one step
+        restored = None
+        for th in CKPT_THREADS:
+            restored = None
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got, step = mgr.restore(n_threads=th)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t
+            if step != 3:
+                fail(f"{tag} restore at {th} threads: step {step}, not 3")
+            _hold_restored(got, direct, dev, f"restore at {th} threads")
+            log(f"{tag} restore at {th} threads: {took:.1f} s, every leaf "
+                f"bit-equal to the direct int8 round trip; card: {smi}")
+            restored = got
+            del got
+        name = max((n for n, e in direct.items() if e[0] == "recoil"),
+                   key=lambda n: math.prod(direct[n][4]))
+        with open(os.path.join(step_dir, name.replace("/", "__") + ".rcl"),
+                  "rb") as f:
+            pc = container.parse(f.read(), mgr.rans_params)
+        log(f"{tag} pointer walk on the largest restored leaf {name} "
+            f"({pc.n_symbols} symbols, {len(pc.stream)} words): "
+            f"{_walk_times(pc, dev, rd)}; card: {smi}")
+        del direct, pc
+        stamp("the resumed step, under torch.profiler")
+        resumed = TrainState(params=restored["params"], opt=restored["opt"],
+                             step=torch.tensor(3, dtype=torch.int32,
+                                               device=dev))
+        del restored
+        resumed, m, s = _profile_train(step_fn, resumed, corpus.batch(3))
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            fail(f"{tag} the resumed step: {m}")
+        log(f"{tag} resumed from the restored state: step 4 again, loss "
+            f"{m['loss']:.5f} (step 4 took {hist[3]['loss']:.5f} before the "
+            f"int8 round trip), grad_norm {m['grad_norm']:.5f}, "
+            f"{s * 1e3:.1f} ms under the profiler")
+        del resumed
+        torch.cuda.empty_cache()
+        launches = {"encode_scan": re_.encode_scan.launches,
+                    "plan_splits": re_.plan_splits.launches,
+                    "walk_pointer": rd.walk_decode_pointer.launches,
+                    "walk_symbol": rd.walk_decode_symbol.launches}
+        rcl = len([n for n, e in json.load(open(os.path.join(
+            step_dir, "manifest.json")))["leaves"].items()
+            if e["codec"] == "recoil"])
+        plain = re_.encode_scan.plain_calls + re_.plan_splits.plain_calls \
+            + rd.walk_decode_pointer.plain_calls \
+            + rd.walk_decode_symbol.plain_calls
+        want = {"encode_scan": 1 + rcl, "plan_splits": 1 + rcl,
+                "walk_pointer": len(SHARD_THREADS) + 1
+                + len(CKPT_THREADS) * rcl, "walk_symbol": 0}
+        if plain or launches != want:
+            fail(f"{tag} launches {launches} (want {want}), plain versions "
+                 f"{plain}")
+        log(f"{tag} the training path's launches: {launches} (the shard's "
+            f"write and {len(SHARD_THREADS) + 1} reads, {rcl} recoil leaves "
+            f"saved once and restored at {len(CKPT_THREADS)} thread "
+            "counts), no plain version")
+        stamp("the float32 twin")
+        _twin(dev, corpus, smi)
+        stamp("the example")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    with tempfile.TemporaryDirectory() as d:
+        took = _run_example("train_lm_torch", ["--preset", "tiny", "--steps",
+                                               str(EXAMPLE_STEPS),
+                                               "--ckpt-dir", d], tag=tag)
+    log(f"{tag} examples/train_lm_torch.py --preset tiny --steps "
+        f"{EXAMPLE_STEPS} through main(): {took:.1f} s")
+    log(f"{tag} phase 10: {time.perf_counter() - t_phase:.1f} s; card: {smi}")
+    return launches
+
+
+def _profile_train(step_fn, state, batch):
+    """One train step under ``torch.profiler``, device activity only (with
+    the host's operator events too, a step's million events take the
+    profiler minutes to gather).  Returns the step's (state, metrics as
+    floats, seconds of the step)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    _report_profile(prof, wall * 1e3, "train step", 1,
+                    tag="[profile] train")
+    log(f"[profile] train: the profiled step and its report took "
+        f"{time.perf_counter() - t_all:.1f} s")
+    return state, {k: float(v) for k, v in m.items()}, wall
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     smi = phase_device()
     sys.path.insert(0, SRC)
     sys.path.insert(0, TESTS)
@@ -3368,11 +3890,14 @@ def main() -> int:
     for phase in (phase_tuning(svc, assets, rd, re_, errs, smi),
                   phase_shards(svc, assets, rd, re_, smi),
                   phase_lm(rd, re_, smi, dev),
-                  phase_lm_families(rd, re_, smi, dev)):
+                  phase_lm_families(rd, re_, smi, dev),
+                  phase_train(rd, re_, smi, dev)):
         for name, n in phase.items():
             for row in rows:
                 if row["name"] == name:
                     row["launches"] += n
+    log(f"[done] every phase, the build included: "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

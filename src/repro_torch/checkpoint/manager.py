@@ -32,9 +32,11 @@ f below 2^n; the container stays one that the reference parses and decodes.
 
 Durability: write to ``step_<N>.tmp``, fsync the manifest, atomic
 ``os.replace``; ``latest()`` only sees renamed directories.  ``save_async``
-runs the serialization on a worker thread and ``wait()`` joins it (one
-outstanding snapshot); an exception in the worker is raised by the next
-``wait()``.
+snapshots the tree into host memory (pinned, for card tensors), as the
+reference snapshots off the device, and runs the serialization on a worker
+thread, which uploads one leaf at a time to encode it; ``wait()`` joins it
+(one outstanding snapshot).  An exception in the worker is raised by the
+next ``wait()``.
 """
 
 from __future__ import annotations
@@ -52,7 +54,6 @@ import torch
 from ..core import container, recoil
 from ..core.encode import EncoderSession
 from ..core.engine import DecoderSession
-from ..core.interleaved import EncodedStream
 from ..core.rans import RansParams, StaticModel
 from ..device import resolve_device
 from ..optim.compress import BLOCK, dequantize_int8, quantize_int8
@@ -96,16 +97,38 @@ def _dtype_name(t: torch.Tensor) -> str:
 
 
 def _snapshot(tree):
-    """A copy of ``tree`` that later writes to its tensors cannot reach:
-    tensors cloned on their own device, arrays copied.  Dict keys come in
-    sorted order, as the reference's ``jax.tree.map`` snapshot gives them."""
-    if isinstance(tree, dict):
-        return {k: _snapshot(tree[k]) for k in sorted(tree)}
-    if tree is None:
-        return None
-    if torch.is_tensor(tree):
-        return tree.detach().clone()
-    return np.array(tree)
+    """A copy of ``tree`` that later writes to its tensors cannot reach, off
+    the device as the reference's ``np.asarray`` snapshot is: card tensors
+    copied into one pinned host buffer (queued on the current stream; wait
+    on an event recorded after them before reading), CPU tensors cloned,
+    arrays copied.  Dict keys come in sorted order, as the reference's
+    ``jax.tree.map`` snapshot gives them."""
+    def leaves(node):     # in the order copy() visits them
+        if isinstance(node, dict):
+            for k in sorted(node):
+                yield from leaves(node[k])
+        elif torch.is_tensor(node) and node.device.type == "cuda":
+            yield node
+    cards = list(leaves(tree))
+    sizes = [-(-t.numel() * t.element_size() // 64) * 64 for t in cards]
+    buf = (torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=True)
+           if cards else None)
+    offsets = iter(np.cumsum([0] + sizes[:-1]).tolist())
+
+    def copy(node):
+        if isinstance(node, dict):
+            return {k: copy(node[k]) for k in sorted(node)}
+        if node is None:
+            return None
+        if not torch.is_tensor(node):
+            return np.array(node)
+        if node.device.type != "cuda":
+            return node.detach().clone()
+        off = next(offsets)
+        host = buf[off:off + node.numel() * node.element_size()].view(
+            node.dtype).view(node.shape)
+        return host.copy_(node.detach(), non_blocking=True)
+    return copy(tree)
 
 
 def symbol_model(sym: torch.Tensor, params: RansParams) -> StaticModel:
@@ -167,16 +190,9 @@ class CheckpointManager:
         sym = q.reshape(-1).view(torch.uint8) + 127
         del q
         model = symbol_model(sym, self.rans_params)
-        sess = EncoderSession(model, device=self._device)
-        res = sess.ingest(sym, self.recoil_splits)
-        del sym
-        words = res.stream.words[:res.n_words].cpu().numpy().view(np.uint16)
-        enc = EncodedStream(stream=words, final_states=res.final_states,
-                            n_symbols=res.plan.n_symbols,
-                            params=self.rans_params, k_of_word=None,
-                            y_of_word=None)
-        return container.pack_recoil(enc, model, res.plan), \
-            scale.cpu().numpy()
+        buf, _ = EncoderSession(model, device=self._device).ingest_container(
+            sym, self.recoil_splits)
+        return buf, scale.cpu().numpy()
 
     def _decode_leaf(self, buf: bytes, scale: np.ndarray, shape, dev,
                      n_threads: int = 0) -> torch.Tensor:
@@ -220,7 +236,7 @@ class CheckpointManager:
                     t = t.float()
                     entry["stored_as"] = "float32"
                 path = os.path.join(tmp, fname + ".npy")
-                np.save(path, np.ascontiguousarray(t.detach().cpu().numpy()))
+                np.save(path, t.detach().cpu().contiguous().numpy())
                 with open(path, "rb") as f:
                     entry["crc32"] = zlib.crc32(f.read())
             manifest["leaves"][name] = entry
@@ -236,14 +252,26 @@ class CheckpointManager:
         return final
 
     def save_async(self, step: int, tree):
-        """Snapshot ``tree`` (card tensors cloned on the card) and save it
-        on a worker thread; :meth:`wait` joins it."""
+        """Snapshot ``tree`` off the device (card tensors into pinned host
+        memory) and save it on a worker thread, which uploads one leaf at a
+        time to encode it; :meth:`wait` joins it.  The caller may go on
+        writing to the tree's tensors at once: the copies are queued ahead
+        of its later work on the stream."""
         self.wait()
         snap = _snapshot(tree)
+        ready = None
+        if self._device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
 
         def run():
             try:
-                self.save(step, snap)
+                if ready is not None:
+                    ready.synchronize()
+                    with torch.cuda.device(self._device):
+                        self.save(step, snap)
+                else:
+                    self.save(step, snap)
             except Exception as e:  # raised by the next wait()
                 self._error = e
         self._thread = threading.Thread(target=run, daemon=True)

@@ -217,6 +217,19 @@ class EncoderSession:
         return [self._materialize(out, i, sizes[i], c)
                 for i, c in enumerate(contents)]
 
+    def ingest_container(self, symbols, n_splits: int) -> tuple:
+        """Ingest one content of a static model and pack it into the wire
+        container (``container.pack_recoil``).  Only the stream's words,
+        the final states and the split plan cross to the host.  Returns
+        ``(container bytes, RecoilPlan)``."""
+        from .. import container
+        res = self.ingest(symbols, n_splits)
+        words = res.stream.words[:res.n_words].cpu().numpy().view(np.uint16)
+        enc = EncodedStream(stream=words, final_states=res.final_states,
+                            n_symbols=res.plan.n_symbols, params=self.params,
+                            k_of_word=None, y_of_word=None)
+        return container.pack_recoil(enc, self.model, res.plan), res.plan
+
     def encode(self, symbols, ctx=None) -> EncodedStream:
         """Host :class:`EncodedStream` (stream + emission log), bit-exact
         against ``interleaved.encode_interleaved``."""

@@ -16,8 +16,9 @@ merge are those of a mesh of distinct devices, only serialised.
 
 Building a mesh never touches a device until it is called, and with no
 card a mesh over the visible CUDA devices raises instead of drifting to
-the CPU.  The production and data-parallel meshes of the training side
-are not part of the decode port.
+the CPU.  A ``("pod",)`` mesh (:func:`make_pod_mesh`) carries the
+cross-pod compressed train step, one device a pod.  The production and
+data-parallel meshes of the training side are not ported yet.
 """
 
 from __future__ import annotations
@@ -90,3 +91,12 @@ def make_smoke_mesh(n_devices: int | None = None, model: int = 2, *,
         raise ValueError(f"{len(devs)} devices do not split into "
                          f"model={model} columns")
     return DecodeMesh(devs, ("data", "model"), (len(devs) // model, model))
+
+
+def make_pod_mesh(n_pods: int | None = None, *, devices=None):
+    """1-D ``("pod",)`` mesh of ``n_pods`` entries of ``devices`` (the
+    defaults as :func:`make_decode_mesh`'s): one device a pod, for the
+    cross-pod compressed train step
+    (``repro_torch.runtime.train.make_compressed_crosspod_step``)."""
+    devs = _devices(devices, n_pods)
+    return DecodeMesh(devs, ("pod",), (len(devs),))

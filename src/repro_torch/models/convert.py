@@ -1,12 +1,15 @@
-"""Carrying parameters between the JAX package and the port.
+"""Carrying parameters and train states between the JAX package and the
+port.
 
 ``params_from_arrays`` turns a nested dict of numpy arrays (the JAX
 package's parameters through ``np.asarray``) into the port's tensors on a
 device; ``params_to_arrays`` goes the other way.  Both keep the dicts' key
-order.  A bf16 array from JAX has numpy dtype ``bfloat16``, a type that the
-``ml_dtypes`` package registers with numpy; the port does not import that
-package, so such arrays cross as their 16-bit patterns (``view(np.int16)``
-into ``torch.int16``, then ``view(torch.bfloat16)``), bit for bit.
+order.  ``state_from_arrays`` carries a train state (params, moments, step
+and error-feedback residuals) the same way.  A bf16 array from JAX has
+numpy dtype ``bfloat16``, a type that the ``ml_dtypes`` package registers
+with numpy; the port does not import that package, so such arrays cross
+as their 16-bit patterns (``view(np.int16)`` into ``torch.int16``, then
+``view(torch.bfloat16)``), bit for bit.
 """
 
 from __future__ import annotations
@@ -53,3 +56,18 @@ def params_to_arrays(tree: dict) -> dict:
     tensors as numpy ``bfloat16``, which needs that type registered)."""
     return {k: params_to_arrays(v) if isinstance(v, dict)
             else _leaf_to_array(v) for k, v in tree.items()}
+
+
+def state_from_arrays(state, device="cuda"):
+    """A train state of the JAX package (``params``, ``opt``, ``step`` and
+    ``ef`` as arrays, e.g. through ``np.asarray``) -> the port's
+    :class:`~repro_torch.runtime.train.TrainState` on ``device``, every
+    leaf bit for bit (``ef`` may be None)."""
+    from ..runtime.train import TrainState
+    dev = resolve_device(device)
+
+    def tree(t):
+        return None if t is None else params_from_arrays(t, dev)
+    return TrainState(params=tree(state.params), opt=tree(state.opt),
+                      step=_leaf_to_tensor(state.step, dev),
+                      ef=tree(state.ef))

@@ -17,6 +17,19 @@ Counterpart of the JAX package's ``models/model.py``:
     ring caches (masking by absolute position); ``kv_cache_dtype='int8'``
     quantizes the cache per slot and head (qwen15_32b's default).
 
+Training: :meth:`LM.loss` is differentiable for every family and honours
+``cfg.remat`` as the reference's layer scan does: ``"none"`` recomputes
+nothing, ``"full"`` runs each layer under ``torch.utils.checkpoint``, and
+``"dots"`` keeps only the outputs of products with no batch dimension
+(``x @ W``, ``aten.mm``/``aten.addmm``) and recomputes the rest, the
+attention's and the experts' batched products included (the counterpart of
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``).  As in the
+reference, self- and cross-attention run under a checkpoint of their own
+whatever the policy, so no KV block's scores are kept for backward.  A
+layer loop takes each stacked leaf apart with one ``torch.unbind`` a
+forward, whose backward stacks the layers' gradients once (indexing
+``w[l]`` per layer would add a zero tensor of the whole stack per layer).
+
 Departures from the reference, all of the serving loop's kind:
 
   * ``cache["pos"]`` is a host int, so no step reads the position back
@@ -28,16 +41,19 @@ Departures from the reference, all of the serving loop's kind:
   * :meth:`LM.prefill` takes each decoder layer's cross-attention keys and
     values from the layer's own cross-attention (the reference computes the
     same products again in a second scan);
-  * there is no rematerialization, ``shard(...)`` constraint or scan: the
-    port runs eagerly on one device, for inference.
+  * there is no ``shard(...)`` constraint or scan: the port runs eagerly on
+    one device.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -51,6 +67,40 @@ IGNORE = -100
 FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid", "encdec")
 # The families whose layers hold attention (every one but ``ssm``).
 _ATTN_FAMILIES = ("dense", "vlm", "audio", "moe", "hybrid", "encdec")
+# Products with no batch dimension: x @ W with a 2-D weight (torch folds the
+# leading axes of x into one, so they reach the dispatcher as mm).
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of products
+    with no batch dimension, recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_REMAT_KW = {
+    "full": {},
+    "dots": {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)},
+}
+
+
+def _remat(fn, policy: str = "full"):
+    """``fn`` under a rematerialization policy while autograd records
+    (under ``no_grad`` there is nothing to keep or recompute)."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             **_REMAT_KW[policy])
+
+
+def _per_layer(stacked: dict) -> list:
+    """Each layer's dict of slices of the stacked leaves, by one
+    ``torch.unbind`` a leaf."""
+    cols = {name: torch.unbind(w) for name, w in stacked.items()}
+    n = len(next(iter(cols.values())))
+    return [{name: c[l] for name, c in cols.items()} for l in range(n)]
 
 
 class LM:
@@ -199,11 +249,11 @@ class LM:
         if memory is None:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
-            out = attn_lib.flash_attention(
+            out = _remat(attn_lib.flash_attention)(
                 q, k, v, causal=causal, window=cfg.swa_window,
                 banded_window=cfg.banded_attention)
         else:
-            out = attn_lib.flash_attention(
+            out = _remat(attn_lib.flash_attention)(
                 q, k, v, causal=False, q_positions=positions,
                 kv_positions=torch.arange(src.shape[1], dtype=torch.int32,
                                           device=x.device))
@@ -345,11 +395,16 @@ class LM:
     def _stack(self, layer_params, x, positions, memory=None,
                on_layer=None):
         """The layer loop over the stacked per-layer tensors; ``on_layer(l,
-        aux)`` receives each layer's cache entries (:meth:`_layer`)."""
-        for l in range(self.cfg.n_layers):
-            lp = {name: w[l] for name, w in layer_params.items()}
-            x, aux = self._layer(lp, x, positions, memory=memory)
-            if on_layer is not None:
+        aux)`` receives each layer's cache entries (:meth:`_layer`).
+        Without ``on_layer`` each layer runs under the remat policy."""
+        body = _remat(lambda lp, xx: self._layer(lp, xx, positions,
+                                                 memory=memory)[0],
+                      self.cfg.remat)
+        for l, lp in enumerate(_per_layer(layer_params)):
+            if on_layer is None:
+                x = body(lp, x)
+            else:
+                x, aux = self._layer(lp, x, positions, memory=memory)
                 on_layer(l, aux)
         return x
 
@@ -367,13 +422,15 @@ class LM:
         x = self._frames(params, frames).to(self.param_dtype)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        enc = params["enc_layers"]
-        for l in range(self.cfg.enc_layers):
-            lp = {name: w[l] for name, w in enc.items()}
-            a, _ = self._attn_full(lp, rms_norm(x, lp["ln_attn"]), positions,
-                                   causal=False)
-            x = x + a
-            x = x + self._mlp(lp, rms_norm(x, lp["ln_mlp"]))
+
+        def body(lp, xx):
+            a, _ = self._attn_full(lp, rms_norm(xx, lp["ln_attn"]),
+                                   positions, causal=False)
+            xx = xx + a
+            return xx + self._mlp(lp, rms_norm(xx, lp["ln_mlp"]))
+        body = _remat(body, self.cfg.remat)
+        for lp in _per_layer(params["enc_layers"]):
+            x = body(lp, x)
         return rms_norm(x, params["enc_final_norm"])
 
     def logits(self, params, x):
@@ -394,8 +451,9 @@ class LM:
         return self.logits(params, x)
 
     def loss(self, params, batch):
-        """Next-token CE of ``batch["tokens"]`` (forward only); hymba's
-        meta-token positions are dropped before the shift."""
+        """Next-token CE of ``batch["tokens"]`` (and ``batch["frames"]`` for
+        an encoder-decoder); hymba's meta-token positions are dropped before
+        the shift.  Differentiable in the params."""
         tokens = torch.as_tensor(batch["tokens"],
                                  device=params["embed"].device)
         logits = self.forward(params, tokens, frames=batch.get("frames"))
@@ -570,8 +628,7 @@ class LM:
                                  f"{pos} does not fit (pass a larger "
                                  "cache_len)")
             cache["positions"][:, write_idx] = pos
-        for l in range(cfg.n_layers):
-            lp = {name: w[l] for name, w in params["layers"].items()}
+        for l, lp in enumerate(_per_layer(params["layers"])):
             if cfg.family in _ATTN_FAMILIES:
                 u = rms_norm(x, lp["ln_attn"])
                 a_out = self._attn_decode(lp, u, cache, l, write_idx,

@@ -1,2 +1,3 @@
-"""Optimization helpers of the port: the per-block int8 quantizer
-(``compress``) that the checkpoint's Recoil codec uses."""
+"""Optimization of the port: AdamW (``adamw``), LR schedules
+(``schedule``) and gradient compression with error feedback, whose int8
+quantizer the checkpoint's Recoil codec also uses (``compress``)."""

@@ -378,3 +378,44 @@ def test_ingest_and_walk_serve_every_recoil_leaf():
         assert rd.walk_decode_pointer.plain_calls == n
         assert rd.walk_decode_symbol.plain_calls == 0
         assert rd.walk_decode_pointer.launches == 0
+
+
+@pytest.mark.parametrize("codec", ["raw", "recoil"])
+@in_child
+def test_train_state_save_async_writes_the_reference_files(codec):
+    """A ``{params, opt}`` train state (bf16 params, float32 moments, the
+    int32 ``count``) after one reference train step, saved through
+    ``save_async``: the manifest and every leaf file byte-equal to the
+    reference's ``save_async`` of the same state, and restored bit-equal
+    to the reference's restore."""
+    from repro.optim.schedule import constant
+    from repro.runtime.train import init_state, make_train_step
+    from repro_torch.models.convert import params_from_arrays
+    jlm = JLM(j_get_smoke_config("granite_3_2b"), param_dtype=jnp.bfloat16)
+    js = init_state(jlm.init(jax.random.PRNGKey(0)))
+    toks = np.random.default_rng(0).integers(0, jlm.cfg.vocab, (4, 16))
+    js, _ = jax.jit(make_train_step(jlm.loss, constant(1e-3)))(
+        js, {"tokens": jnp.asarray(toks, jnp.int32)})
+    ref = {"params": _np_tree(js.params), "opt": _np_tree(js.opt)}
+    tree = params_from_arrays(ref, "cpu")
+    assert not tree["opt"]["count"].is_floating_point()
+    with tempfile.TemporaryDirectory() as d:
+        jm = JManager(root=os.path.join(d, "ref"), codec=codec,
+                      recoil_splits=64)
+        tm = _manager(os.path.join(d, "port"), codec=codec, recoil_splits=64)
+        jm.save_async(2, ref)
+        tm.save_async(2, tree)
+        for leaf in _flat(tree).values():   # after the snapshot: unseen
+            leaf.zero_()
+        jm.wait()
+        tm.wait()
+        want, got = _dir_bytes(jm._step_dir(2)), _dir_bytes(tm._step_dir(2))
+        assert list(got) == list(want)
+        for f in want:
+            assert got[f] == want[f], f
+        manifest = json.loads(got["manifest.json"])["leaves"]
+        assert manifest["opt/count"]["dtype"] == "int32"
+        assert manifest["opt/m/embed"]["dtype"] == "float32"
+        assert manifest["params/embed"]["dtype"] == "bfloat16"
+        _assert_trees_bit_equal(tm.restore(n_threads=4)[0],
+                                jm.restore(n_threads=4)[0])

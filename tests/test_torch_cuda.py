@@ -1313,3 +1313,96 @@ def test_checkpoint_on_the_card_matches_cpu(cuda_device):
                 assert torch.equal(g.cpu(), w), k
             assert torch.equal(got["params"]["embed"].cpu(),
                                want["params"]["embed"])
+
+
+@pytest.mark.parametrize("arch", ["granite_3_2b", "grok1_314b",
+                                  "mamba2_2_7b", "hymba_1_5b",
+                                  "seamless_m4t_medium"])
+@in_child
+def test_train_step_on_the_card_matches_cpu(cuda_device, arch):
+    """A train step of a smoke config at float32 (TF32 off), remat "dots",
+    2 micro-batches, on the card against the CPU path, held as
+    ``chip_smoke.py``'s float32 twin is: the loss within 1e-5 relative,
+    each accumulated gradient leaf within 1e-3 of its max |value|, and
+    AdamW on the card, given the CPU's gradients, within 1e-6 relative of
+    the CPU's update.  (After several steps the two paths part further:
+    AdamW's first updates move a weight whose gradient is near zero by up
+    to the learning rate whichever way its rounding falls.)"""
+    import dataclasses
+    import torch
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import (AdamWConfig, apply_adamw,
+                                         init_moments, tree_leaves,
+                                         tree_map)
+    from repro_torch.optim.schedule import constant
+    from repro_torch.runtime.train import (init_state, make_grad_fn,
+                                           make_train_step)
+    lm, params = _smoke_lm(arch)
+    lm = LM(dataclasses.replace(lm.cfg, remat="dots"),
+            param_dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, lm.cfg.vocab, (4, 32)).astype(np.int32))}
+    if lm.cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(rng.normal(size=(
+            4, lm.cfg.enc_frames, lm.cfg.d_model)).astype(np.float32))
+    card_params = _on(params, cuda_device)
+    grad_fn = make_grad_fn(lm.loss, 2)
+    loss_h, g_h = grad_fn(params, batch)
+    loss_c, g_c = grad_fn(card_params, _on(batch, cuda_device))
+    assert loss_c.device.type == "cuda"
+    assert abs(float(loss_c) - float(loss_h)) <= 1e-5 * abs(float(loss_h))
+    for a, b in zip(tree_leaves(g_c), tree_leaves(g_h)):
+        assert a.device.type == "cuda" and a.dtype == torch.float32
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-3 * float(b.abs().max()))
+    lr = torch.tensor(1e-3)
+    want_p, want_o, _ = apply_adamw(params, g_h, init_moments(params), lr,
+                                    AdamWConfig())
+    got_p, got_o, _ = apply_adamw(
+        card_params, tree_map(lambda g: g.to(cuda_device), g_h),
+        init_moments(card_params), lr.to(cuda_device), AdamWConfig())
+    for a, b in zip(tree_leaves(got_p) + tree_leaves(got_o),
+                    tree_leaves(want_p) + tree_leaves(want_o)):
+        torch.testing.assert_close(a.cpu().float(), b.float(), rtol=0,
+                                   atol=1e-6 * float(b.abs().max()))
+    state, m = make_train_step(lm.loss, constant(1e-3), accum_steps=2)(
+        init_state(card_params), batch)
+    assert float(m["loss"]) == float(loss_c)
+    assert all(v.device.type == "cuda" for v in m.values())
+
+
+@in_child
+def test_save_async_snapshots_card_tensors_to_pinned_memory(cuda_device):
+    """``save_async`` copies card tensors into pinned host memory before
+    its thread starts: writes to the tensors right after it do not reach
+    the files, which equal a synchronous save's of the tree as it was (with
+    its keys sorted, as the snapshot, like the reference's, sorts them)."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import manager as mgr_lib
+    lm, params = _smoke_lm("granite_3_2b")
+    tree = {"params": _on(params, cuda_device)}
+    snap = mgr_lib._snapshot(tree)
+    leaves = mgr_lib._flatten(snap)
+    assert all(t.device.type == "cpu" and t.is_pinned()
+               for t in leaves.values())
+    torch.cuda.synchronize()
+    for name, t in mgr_lib._flatten(tree).items():
+        assert torch.equal(leaves[name], t.cpu()), name
+    def key_sorted(t):      # the snapshot's leaf order, the reference's
+        return {k: key_sorted(t[k]) if isinstance(t[k], dict) else t[k]
+                for k in sorted(t)}
+    with tempfile.TemporaryDirectory() as d:
+        a = mgr_lib.CheckpointManager(root=os.path.join(d, "a"),
+                                      codec="recoil", recoil_splits=64)
+        b = mgr_lib.CheckpointManager(root=os.path.join(d, "b"),
+                                      codec="recoil", recoil_splits=64)
+        b.save(1, key_sorted(tree))
+        a.save_async(1, tree)
+        for t in mgr_lib._flatten(tree).values():
+            t.add_(1.0)
+        a.wait()
+        for f in sorted(os.listdir(b._step_dir(1))):
+            assert open(os.path.join(a._step_dir(1), f), "rb").read() == \
+                open(os.path.join(b._step_dir(1), f), "rb").read(), f

@@ -1,6 +1,13 @@
 """The port's examples (``examples/quickstart_torch.py``,
-``examples/content_delivery_torch.py``) run on the CPU through their
+``examples/content_delivery_torch.py``, ``examples/train_lm_torch.py``,
+``examples/checkpoint_distribution_torch.py``) run on the CPU through their
 ``main(device="cpu")``; each asserts its own decodes equal the payload.
+
+The training driver runs its ``tiny`` preset for 20 steps in a process of
+its own, is killed with SIGTERM after its first step (its preemption guard
+saves a checkpoint and exits) and is relaunched, resuming from that
+checkpoint.  The checkpoint distribution demo runs at a smaller size set
+through its module-level sizes.
 
 The quickstart runs at its own size (2 M symbols).  The content-delivery
 demos run at smaller sizes set through the example's module-level sizes:
@@ -11,6 +18,9 @@ a child pytest process (``test_torch_isolation.in_child``).
 
 import importlib.util
 import os
+import signal
+import subprocess
+import sys
 
 from test_torch_isolation import in_child
 
@@ -49,3 +59,56 @@ def test_content_delivery_runs_on_the_cpu(capsys):
     for section in ("capability negotiation", "predictive hot-set serving",
                     "unified snapshot:", "decode executor:"):
         assert section in out, out
+
+
+def _train(ckpt_dir, *extra):
+    env = {**os.environ, "PYTHONPATH": os.path.join(EXAMPLES, "..", "src")}
+    return subprocess.Popen(
+        [sys.executable, os.path.join(EXAMPLES, "train_lm_torch.py"),
+         "--preset", "tiny", "--steps", "20", "--ckpt-every", "5",
+         "--ckpt-dir", ckpt_dir, "--device", "cpu", *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+
+
+@in_child
+def test_train_lm_is_killed_and_resumes_on_the_cpu(tmp_path):
+    ckpt = str(tmp_path / "ckpt")
+    first = _train(ckpt)
+    lines = []
+    for line in first.stdout:
+        lines.append(line)
+        if line.startswith("[metrics] step=0"):
+            first.send_signal(signal.SIGTERM)
+            break
+    lines += first.stdout.readlines()
+    assert first.wait(timeout=300) == 0, "".join(lines)
+    out = "".join(lines)
+    assert "model: lmtiny" in out and "preempted at step" in out, out
+    stopped = int(out.split("preempted at step ")[1].split(";")[0])
+    assert stopped < 19, out
+    second = _train(ckpt)
+    out2, _ = second.communicate(timeout=300)
+    assert second.returncode == 0, out2
+    assert f"restored from step {stopped + 1} (recoil-coded checkpoint" \
+        in out2, out2
+    assert "[metrics] step=10" in out2 and "done; final loss:" in out2, out2
+    loss = float(out2.split("done; final loss:")[1].split()[0])
+    assert loss == loss and loss < 6.3, out2
+
+
+@in_child
+def test_checkpoint_distribution_runs_on_the_cpu(capsys):
+    from repro_torch.configs.base import ArchConfig
+    ex = _example("checkpoint_distribution_torch")
+    ex.CONFIG = ArchConfig(name="ckpt_demo", family="dense", n_layers=2,
+                           d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                           vocab=1024, remat="none")
+    ex.SEQ_LEN, ex.BATCH, ex.TRAIN_STEPS = 32, 4, 3
+    ex.main(device="cpu")
+    out = capsys.readouterr().out
+    assert "trained 3 steps, loss" in out, out
+    assert "metadata at 256-way parallelism" in out, out
+    losses = [float(line.rsplit("next-step loss ", 1)[1])
+              for line in out.splitlines() if "next-step loss" in line]
+    assert len(losses) == 3 and max(losses) - min(losses) < 0.05, out
+    assert "all hosts resumed" in out, out

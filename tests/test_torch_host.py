@@ -87,6 +87,35 @@ def test_tables_equal(seed, n_bits, alphabet):
                                       j_rans.pack_decode_lut(f_j, F))
 
 
+@pytest.mark.parametrize("kind", ["many_small", "zipf_granite", "sparse",
+                                  "surplus"])
+@in_child
+def test_quantize_pdf_equals_reference(kind):
+    """The port's ``quantize_pdf`` makes each redistribution pass one vector
+    update (the reference loops over the alphabet in Python): the tables
+    are the reference's, over cases that take bins away (many symbols
+    raised to 1, a Zipf sample over granite_3_2b's 49,155-token vocabulary
+    at n = 16) and that add to them (a few large counts)."""
+    from repro_torch.core import rans
+    rng = np.random.default_rng(7)
+    cases = {
+        "many_small": [(rng.integers(0, 3, 5000), 13)],
+        "zipf_granite": [(np.bincount(np.minimum(
+            rng.zipf(1.3, size=1_000_000) - 1, 49_154), minlength=49_155),
+            16)],
+        "sparse": [(np.where(rng.random(3000) > 0.9,
+                             rng.integers(1, 10 ** 6, 3000), 0), n)
+                   for n in (11, 12, 16)],
+        "surplus": [(np.array([10 ** 6, 3, 0, 10 ** 5, 7]), n)
+                    for n in (8, 11, 16)],
+    }[kind]
+    for counts, n_bits in cases:
+        want = j_rans.quantize_pdf(counts, n_bits)
+        got = rans.quantize_pdf(counts, n_bits)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("n,ways,n_bits", [
     (1, 32, 11), (31, 32, 11), (999, 32, 11), (4_096, 8, 8),
     (17_331, 64, 16), (20_000, 128, 12), (5_555, 16, 14)])
@@ -459,7 +488,7 @@ _FORK_HUNKS = {
     "runtime/metrics.py", "runtime/pipeline/controller.py",
     "runtime/pipeline/capability.py", "runtime/pipeline/broker.py",
     "runtime/pipeline/predictor.py", "core/tuning/db.py",
-    "core/tuning/tuner.py"])
+    "core/tuning/tuner.py", "runtime/fault.py"])
 @in_child
 def test_copied_runtime_sources_equal_reference(module):
     """The jax-free runtime modules are copies: their text equals the
@@ -495,6 +524,24 @@ def test_copied_runtime_sources_equal_reference(module):
                           "else ds.words[:ds.n_words].cpu().numpy())")
         ref, port = _code_lines(ref), _code_lines(port)
     assert port == ref
+
+
+@in_child
+def test_data_copies_equal_reference():
+    """``data/pipeline.py``'s ``DataConfig``, ``SyntheticCorpus`` and
+    ``ShardedCorpus`` are copies: each class's text equals the
+    reference's (the fork is ``RecoilShardStore``)."""
+    def classes(package):
+        text = _source(package, "data/pipeline.py")
+        return {node.name: ast.get_source_segment(text, node)
+                for node in ast.parse(text).body
+                if isinstance(node, ast.ClassDef)}
+    ref, port = classes("repro"), classes("repro_torch")
+    assert sorted(port) == sorted(ref) == [
+        "DataConfig", "RecoilShardStore", "ShardedCorpus", "SyntheticCorpus"]
+    for name in ("DataConfig", "SyntheticCorpus", "ShardedCorpus"):
+        assert port[name] == ref[name], name
+    assert port["RecoilShardStore"] != ref["RecoilShardStore"]
 
 
 CONFIG_MODULES = sorted(

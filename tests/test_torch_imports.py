@@ -19,7 +19,9 @@ SOURCES = sorted(
     + ["chip_smoke.py", "chip_holds.py",
        os.path.join("tests", "torch_checks.py"),
        os.path.join("examples", "quickstart_torch.py"),
-       os.path.join("examples", "content_delivery_torch.py")])
+       os.path.join("examples", "content_delivery_torch.py"),
+       os.path.join("examples", "train_lm_torch.py"),
+       os.path.join("examples", "checkpoint_distribution_torch.py")])
 FORBIDDEN = ("jax", "repro", "ml_dtypes")
 
 
@@ -67,5 +69,32 @@ def test_serve_imports_with_jax_blocked():
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, check=False)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "ok"
+
+
+def test_training_imports_with_jax_blocked():
+    """The training side (``optim``, ``runtime.train``, ``runtime.fault``,
+    ``data``, the pod mesh) and the two training examples import with jax,
+    the JAX package and ``ml_dtypes`` blocked."""
+    code = ("import sys\n"
+            "for m in ('jax', 'repro', 'ml_dtypes'):\n"
+            "    sys.modules[m] = None\n"
+            "import repro_torch.optim.adamw, repro_torch.optim.schedule\n"
+            "import repro_torch.optim.compress, repro_torch.runtime.train\n"
+            "import repro_torch.runtime.fault, repro_torch.data.pipeline\n"
+            "import repro_torch.data, repro_torch.launch.mesh\n"
+            "import importlib.util, os\n"
+            "for name in ('train_lm_torch',\n"
+            "             'checkpoint_distribution_torch'):\n"
+            "    spec = importlib.util.spec_from_file_location(\n"
+            "        name, os.path.join('examples', name + '.py'))\n"
+            "    module = importlib.util.module_from_spec(spec)\n"
+            "    spec.loader.exec_module(module)\n"
+            "print('ok')")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=False,
+                         cwd=ROOT)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "ok"
