@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives only the port (``src/repro_torch``) — nothing of JAX or of the JAX
-package — in ten phases, each failing loudly with a non-zero exit:
+package — in eleven phases, each failing loudly with a non-zero exit:
 
   1. device  — the card's name, count, and ``nvidia-smi`` name/power limit;
   2. build   — one ``nvcc`` per kernel source, started together, with each
@@ -197,7 +197,10 @@ package — in ten phases, each failing loudly with a non-zero exit:
                amplify rounding past 0.25 at the serving depth (mamba2,
                hymba, grok) the decode steps' difference is printed, and a
                bf16 run at 1 layer holds every step within 0.25; seamless
-               holds every step at full depth.
+               holds every step at full depth.  For those three, bf16 runs
+               at 2, 4 and 8 layers (up to the serving depth) print the
+               decode steps' difference from ``forward`` (the drift with
+               depth, measured, not held).
                Then a float32 twin at full width (TF32 off; mamba2 at full
                depth, the others cut) held within a fixed tolerance per
                family, which it must exceed with layer 0's SSM state, conv
@@ -252,7 +255,21 @@ package — in ten phases, each failing loudly with a non-zero exit:
                steps, of step 4 with the save and of the save after it,
                the save and restore times, and the pointer walk's device
                time on the shard and on the largest restored leaf.  This
-               path's launches join the kernel table's.
+               path's launches join the kernel table's;
+ 11. elastic — phase 8's qwen3_4b checkpoint restored onto a (2, 2)
+               ``("data", "model")`` mesh of the one card (``(cuda:0,) *
+               4``) under ``make_rules(cfg.sharding_profile, mesh)``, with
+               the counts at 0: at 16 and 256 threads, one pointer walk per
+               recoil leaf and no plain walk; every leaf comes back as its
+               four shards on the card, which ``Placement.gather`` puts
+               back bit-equal to a plain restore; times beside phase 8's
+               plain restores.  Then the dry run (``launch.dryrun``, fake
+               tensors on the host) of phase 10's cell, granite_3_2b
+               ``train_4k`` on one card at 8 micro-batches of one
+               sequence: its roofline terms, FLOPs and memory beside phase
+               10's measured step, bound and peak, with the ratios; it must
+               count no collective bytes.  This path's launches join the
+               kernel table's.
 
 Prints, before the last line, the kernel table as one JSON object and the
 card's ``nvidia-smi`` line; the last line is the JSON run summary.  Exits
@@ -2997,15 +3014,16 @@ def _cut_checkpoint(lm, params, root, tag) -> tuple:
     return tree, depth
 
 
-def phase_lm(rd, re_, smi, dev) -> dict:
+def phase_lm(rd, re_, smi, dev, carry: dict) -> dict:
     """The LM on the card (phase 8): qwen3_4b at full width and depth in
     bf16 served by ``ServeEngine`` and held to ``forward``; the same at
     float32 with 4 layers; then its Recoil checkpoint saved by the card's
     ingest kernels and restored by its walks at 16 and 256 threads, every
     leaf bit-equal to the direct int8 round trip, and the greedy tokens of
     the restored parameters equal to those of the round trip's.  The counts
-    are 0 before the checkpoint's save and read after each step.  Returns
-    this path's launches."""
+    are 0 before the checkpoint's save and read after each step.  Leaves the
+    checkpoint's directory and the restores' seconds in ``carry`` for phase
+    11.  Returns this path's launches."""
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.models.model import LM
@@ -3041,22 +3059,20 @@ def phase_lm(rd, re_, smi, dev) -> dict:
     del p32, lm32
     torch.cuda.empty_cache()
 
-    root = tempfile.mkdtemp(prefix="lm_ckpt_")
-    try:
-        tree, depth = _cut_checkpoint(lm, params, root, "[lm]")
-        launches = _checkpoint_round_trip(
-            tree, root, lm, prompt, rd, re_, smi, dev, depth,
-            probe_leaf="params/layers/w_gate",
-            small_leaf="params/layers/ln_attn")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    root = carry["lm_ckpt"] = tempfile.mkdtemp(prefix="lm_ckpt_")
+    tree, depth = _cut_checkpoint(lm, params, root, "[lm]")
+    launches = _checkpoint_round_trip(
+        tree, root, lm, prompt, rd, re_, smi, dev, depth,
+        probe_leaf="params/layers/w_gate",
+        small_leaf="params/layers/ln_attn",
+        restore_s=carry.setdefault("lm_restore_s", {}))
     log(f"[lm] phase 8: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
 def _checkpoint_round_trip(tree, root, lm, prompt, rd, re_, smi, dev,
                            depth, *, probe_leaf, small_leaf,
-                           tag="[lm]") -> dict:
+                           tag="[lm]", restore_s=None) -> dict:
     """Save ``tree`` as a Recoil checkpoint with the counts at 0 (one
     encode scan and one planner launch per recoil leaf, no plain version);
     hold ``small_leaf``'s ``.rcl`` and that of the first CKPT_PROBE symbols
@@ -3064,7 +3080,8 @@ def _checkpoint_round_trip(tree, root, lm, prompt, rd, re_, smi, dev,
     (one pointer walk per recoil leaf, no plain walk), every leaf bit-equal
     to the direct int8 round trip; the restored parameters' greedy tokens
     equal to the round trip's; the pointer walk's device time on the
-    largest leaf.  Returns the launches."""
+    largest leaf.  Writes each restore's seconds into ``restore_s`` by
+    thread count, when given.  Returns the launches."""
     from repro_torch.checkpoint.manager import CheckpointManager, \
         _unflatten_into
     from repro_torch.core import container
@@ -3158,6 +3175,8 @@ def _checkpoint_round_trip(tree, root, lm, prompt, rd, re_, smi, dev,
                                     else want):
                 fail(f"{tag} restore at {th} threads: {name} is not the "
                      "direct int8 round trip, bit for bit")
+        if restore_s is not None:
+            restore_s[th] = took
         log(f"{tag} restore at {th} threads: {took:.1f} s, {len(rcl)} "
             f"pointer walks (a container off disk has no emission log), "
             f"every leaf bit-equal to dequantize_int8(quantize_int8(leaf)) "
@@ -3274,6 +3293,9 @@ FAMILY_RUNS = {
                                 (BF16, 1, LM_BF16_ATOL),
                                 (F32, 1, LM_F32_ATOL))),
 }
+# Depths at which a family whose serving run is not held prints its bf16
+# decode's difference from forward (the drift with depth; ROADMAP §3).
+BF16_SWEEP = (2, 4, 8)
 FAMILY_PROFILE = "mamba2_2_7b"      # torch.profiler over its serving
 FAMILY_CKPT = "mamba2_2_7b"         # its Recoil checkpoint round trip
 
@@ -3381,6 +3403,16 @@ def phase_lm_families(rd, re_, smi, dev) -> dict:
                 f" + {n} encoder layers" if lm2.cfg.is_encdec else "")
             _serve(lm2, p2, prompt, label, atol, smi, dev, tag, 1,
                    frames=frames, hold_lm=_hold_lm(lm2), faults=dtype == F32)
+            del lm2, p2
+            torch.cuda.empty_cache()
+        top = depth or get_config(arch).n_layers
+        for layers in ([] if run.held else
+                       [n for n in BF16_SWEEP if n <= top]):
+            lm2, p2, _, _ = _family_lm(arch, dev, gen, 0, BF16,
+                                       layers=layers)
+            _serve(lm2, p2, prompt, f"{arch} bf16 drift, {layers} layers",
+                   LM_BF16_ATOL, smi, dev, tag, 1, frames=frames,
+                   hold_lm=_hold_lm(lm2), held=False)
             del lm2, p2
             torch.cuda.empty_cache()
         log(f"{tag} {arch}: {time.perf_counter() - t_arch:.1f} s")
@@ -3598,13 +3630,14 @@ def _twin(dev, corpus, smi) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_train(rd, re_, smi, dev) -> dict:
+def phase_train(rd, re_, smi, dev, carry: dict) -> dict:
     """Training on the card (phase 10): granite_3_2b at full width and
     depth, trained from a Recoil shard, checkpointed while a step runs,
     restored bit-equal to the direct int8 round trip and resumed; the float32
     twin with its planted fault; the cross-pod step; the example.  The
     counts are 0 before the shard's write and read after the resume.
-    Returns this path's launches."""
+    Leaves the warm step's time, its bound and the steps' peak in
+    ``carry`` for phase 11.  Returns this path's launches."""
     import tempfile
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import get_config
@@ -3762,6 +3795,8 @@ def phase_train(rd, re_, smi, dev) -> dict:
             fail(f"{tag} training: losses {losses}, grad norms {norms}")
         warm = [times[2], times[3]]
         med = statistics.median(warm)
+        carry["train"] = {"step_ms": med * 1e3, "bound_ms": bound,
+                          "peak_gib": step_peak / 2**30}
         log(f"{tag} {TRAIN_STEPS} steps: loss {losses[0]:.5f} -> "
             f"{losses[-1]:.5f}; warm step (median of steps 2, 3) "
             f"{med * 1e3:.1f} ms, {tokens / med:.0f} tokens/s, bound "
@@ -3866,6 +3901,157 @@ def _profile_train(step_fn, state, batch):
     return state, {k: float(v) for k, v in m.items()}, wall
 
 
+# Phase 11: phase 8's checkpoint restored elastically onto a mesh of the
+# one card under the sharding rules, and the dry run of phase 10's cell.
+ELASTIC_TAG = "[elastic]"
+ELASTIC_MODEL = 2          # the (2, 2) mesh's "model" axis; "data" is 2 too
+
+
+def phase_elastic(rd, re_, smi, dev, carry: dict) -> dict:
+    """The elastic restore and the dry run (phase 11): phase 8's qwen3_4b
+    checkpoint restored with ``shardings`` from
+    ``make_rules(cfg.sharding_profile, mesh)`` over a (2, 2)
+    ``("data", "model")`` mesh of ``(cuda:0,) * 4``, at 16 and 256 threads
+    with the counts at 0 (one pointer walk per recoil leaf, no plain walk),
+    every leaf put back bit-equal to a plain restore; then the dry run of
+    granite_3_2b ``train_4k`` on one card at phase 10's 8 micro-batches of
+    one sequence, beside phase 10's measured step (``carry``: what phases
+    8 and 10 left).  Returns this path's launches."""
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager, \
+        _unflatten_into
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.parallel.sharding import make_rules
+    tag = ELASTIC_TAG
+    t_phase = time.perf_counter()
+    root = carry.pop("lm_ckpt")
+    try:
+        cfg = get_config(LM_ARCH)
+        specs = LM(cfg).param_specs()
+        mesh = make_smoke_mesh(4, ELASTIC_MODEL, devices=(dev,) * 4)
+        rules = make_rules(cfg.sharding_profile, mesh)
+        mgr = CheckpointManager(root=root, codec="recoil",
+                                recoil_splits=CKPT_SPLITS, device=dev)
+        step = mgr.latest()
+        with open(os.path.join(mgr._step_dir(step), "manifest.json")) as f:
+            manifest = json.load(f)["leaves"]
+        rcl = [n for n, e in manifest.items() if e["codec"] == "recoil"]
+        placements = {}
+        for name, entry in manifest.items():
+            axes = specs
+            for key in name.split("/")[1:]:       # below "params"
+                axes = axes[key]
+            placements[name] = rules.sharding(tuple(axes),
+                                              tuple(entry["shape"]))
+        shardings = _unflatten_into(placements)
+        split = [f"{n.split('/')[-1]} {p.spec}"
+                 for n, p in placements.items()
+                 if any(e is not None for e in p.spec)]
+        log(f"{tag} {LM_ARCH}'s checkpoint of phase 8 ({len(manifest)} "
+            f"leaves, {len(rcl)} recoil) onto a {tuple(mesh.shape.values())} "
+            f"{mesh.axis_names} mesh of {dev} x 4 under "
+            f"make_rules({cfg.sharding_profile!r}): {len(split)} leaves cut "
+            f"({'; '.join(split)}), the rest replicated; fallbacks "
+            f"{len(rules.fallbacks)}")
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain, _ = mgr.restore(n_threads=CKPT_THREADS[-1])
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        plain = _flatten(plain)
+        rd.reset_counts()
+        re_.reset_counts()
+        took = {}
+        for th in CKPT_THREADS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            got, got_step = mgr.restore(n_threads=th, shardings=shardings)
+            torch.cuda.synchronize()
+            took[th] = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated()
+            if got_step != step:
+                fail(f"{tag} restore at {th} threads: step {got_step}")
+            shard_bytes = 0
+            for name, shards in _flatten(got).items():
+                p, want = placements[name], plain[name]
+                if not isinstance(shards, list) or len(shards) != 4 or \
+                        any(s.device != want.device for s in shards):
+                    fail(f"{tag} restore at {th} threads: {name} is not 4 "
+                         f"shards on {want.device}")
+                back = p.gather(shards)
+                if back.dtype != want.dtype or not torch.equal(
+                        back.view(torch.int16), want.view(torch.int16)):
+                    fail(f"{tag} restore at {th} threads: {name} put back "
+                         "is not the plain restore, bit for bit")
+                shard_bytes += sum(s.numel() * s.element_size()
+                                   for s in shards)
+                del back
+            del got
+            log(f"{tag} restore onto the mesh at {th} threads: "
+                f"{took[th]:.1f} s (phase 8's plain restore "
+                f"{carry['lm_restore_s'][th]:.1f} s), {len(manifest)} "
+                f"leaves as 4 shards each ({shard_bytes} B in all), every "
+                f"leaf put back bit-equal to a plain restore; peak device "
+                f"memory {peak / 2**30:.2f} GiB; card: {smi}")
+        walks = (rd.walk_decode_pointer.launches,
+                 rd.walk_decode_symbol.launches)
+        plain_calls = rd.walk_decode_pointer.plain_calls + \
+            rd.walk_decode_symbol.plain_calls
+        if walks != (len(CKPT_THREADS) * len(rcl), 0) or plain_calls:
+            fail(f"{tag} walks (pointer, symbol) {walks} for "
+                 f"{len(CKPT_THREADS)} restores of {len(rcl)} recoil leaves, "
+                 f"plain {plain_calls}")
+        log(f"{tag} the elastic restore's launches: {walks[0]} pointer "
+            f"walks, no plain walk; a plain restore at {CKPT_THREADS[-1]} "
+            f"threads, uncounted, took {plain_s:.1f} s")
+        del plain
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    measured = carry["train"]
+    accum = TRAIN_BATCH // TRAIN_MICRO
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        row = dryrun.run_cell(TRAIN_ARCH, "train_4k", "card", d,
+                              verbose=False, accum_override=accum,
+                              batch_override=TRAIN_BATCH)
+        dry_s = time.perf_counter() - t
+    if row["status"] != "OK" or row["coll_bytes_per_dev"] != 0 or \
+            not row["t_comp_s"] > 0 or not row["mem_per_dev_gb"] > 0:
+        fail(f"{tag} the dry run of {TRAIN_ARCH} train_4k on one card: {row}")
+    comp_ms, mem_ms = row["t_comp_s"] * 1e3, row["t_mem_s"] * 1e3
+    bound_ms = max(comp_ms, mem_ms, row["t_coll_s"] * 1e3)
+    mem_gib = row["mem_per_dev_gb"] * 1e9 / 2**30
+    detail = ", ".join(f"{k} {v / 2**30:.2f}"
+                       for k, v in row["mem_detail"].items())
+    log(f"{tag} dry run of {TRAIN_ARCH} train_4k on one card ({TRAIN_BATCH} "
+        f"sequences, {accum} micro-batches of {TRAIN_MICRO}; fake tensors on "
+        f"the host, {dry_s:.1f} s): FLOPs {row['hlo_flops_per_dev']:.4e} "
+        f"(model 6 N D {row['model_flops']:.4e}, useful "
+        f"{row['useful_ratio']:.3f}), bytes {row['hlo_bytes_per_dev']:.4e}, "
+        f"collective {row['coll_bytes_per_dev']:.0f} B; T_comp "
+        f"{comp_ms:.1f} ms, T_mem {mem_ms:.1f} ms, T_coll "
+        f"{row['t_coll_s'] * 1e3:.1f} ms, dominant {row['dominant']}; memory "
+        f"{mem_gib:.2f} GiB ({detail} GiB)")
+    log(f"{tag} beside phase 10: measured step {measured['step_ms']:.1f} ms "
+        f"= {measured['step_ms'] / comp_ms:.2f} x T_comp, "
+        f"{measured['step_ms'] / mem_ms:.2f} x T_mem, "
+        f"{measured['step_ms'] / bound_ms:.2f} x the dry run's bound; "
+        f"phase 10's bound {measured['bound_ms']:.1f} ms = "
+        f"{measured['bound_ms'] / comp_ms:.3f} x T_comp; measured peak "
+        f"{measured['peak_gib']:.2f} GiB = "
+        f"{measured['peak_gib'] / mem_gib:.3f} x the dry run's "
+        f"{mem_gib:.2f} GiB; card: {smi}")
+    log(f"{tag} phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return {"walk_pointer": walks[0]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3887,15 +4073,21 @@ def main() -> int:
     phase_observe_cost(svc, assets, smi)
     phase_broker_times(svc, assets, smi)
     rows += phase_ingest_times(svc, assets, launches, errs, smi, sass)
-    for phase in (phase_tuning(svc, assets, rd, re_, errs, smi),
-                  phase_shards(svc, assets, rd, re_, smi),
-                  phase_lm(rd, re_, smi, dev),
-                  phase_lm_families(rd, re_, smi, dev),
-                  phase_train(rd, re_, smi, dev)):
-        for name, n in phase.items():
-            for row in rows:
-                if row["name"] == name:
-                    row["launches"] += n
+    carry: dict = {}     # what a phase leaves for phase 11
+    try:
+        for phase in (phase_tuning(svc, assets, rd, re_, errs, smi),
+                      phase_shards(svc, assets, rd, re_, smi),
+                      phase_lm(rd, re_, smi, dev, carry),
+                      phase_lm_families(rd, re_, smi, dev),
+                      phase_train(rd, re_, smi, dev, carry),
+                      phase_elastic(rd, re_, smi, dev, carry)):
+            for name, n in phase.items():
+                for row in rows:
+                    if row["name"] == name:
+                        row["launches"] += n
+    finally:
+        if "lm_ckpt" in carry:
+            shutil.rmtree(carry["lm_ckpt"], ignore_errors=True)
     log(f"[done] every phase, the build included: "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

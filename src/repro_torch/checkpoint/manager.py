@@ -285,11 +285,22 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def restore(self, step: int | None = None, n_threads: int = 0,
-                device=None, verify: bool = True):
+                device=None, verify: bool = True, shardings=None):
         """Load a checkpoint as tensors on ``device`` (default the
         manager's, ``"cuda"`` unless it was built with ``"cpu"``).
         ``n_threads`` is this host's decode parallelism: the Recoil
-        metadata is thinned to it before decoding.  Returns (tree, step)."""
+        metadata is thinned to it before decoding.  Returns (tree, step).
+
+        Elastic restore: ``shardings`` is a tree of
+        :class:`~repro_torch.launch.mesh.Placement` s over the *new* mesh
+        (``ShardingRules.sharding``), matching the leaves, or None.  Each
+        leaf is decoded once on ``device`` and a placed leaf comes back as
+        its shards, the list ``placement.shard(leaf)`` gives (one a mesh
+        entry, row-major, each on its entry's device;
+        ``placement.gather(shards)`` puts it back); a leaf the tree does not
+        name stays whole on ``device``.  jax instead returns one global
+        array whose shards live on the mesh's devices; a process of the port
+        holds the shards themselves."""
         dev = self._device if device is None else resolve_device(device)
         step = self.latest() if step is None else step
         if step is None:
@@ -297,6 +308,7 @@ class CheckpointManager:
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
+        flat_sh = {} if shardings is None else _flatten(shardings)
         flat = {}
         for name, entry in manifest["leaves"].items():
             fname = name.replace("/", "__")
@@ -317,5 +329,7 @@ class CheckpointManager:
                 t = torch.from_numpy(np.load(path)).to(dev)
             if entry["dtype"] == "bfloat16":
                 t = t.to(torch.bfloat16)
-            flat[name] = t
+            placement = flat_sh.get(name)
+            flat[name] = t if placement is None else placement.shard(t)
+            del t
         return _unflatten_into(flat), step

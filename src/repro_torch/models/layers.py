@@ -4,7 +4,7 @@ Counterpart of the JAX package's ``models/layers.py``.  Parameters are plain
 nested dicts of tensors; every leaf is created through :class:`ParamBuilder`,
 which draws from an explicit ``torch.Generator`` on an explicit device and
 records the leaf's *logical axes* in a parallel specs tree, as the
-reference's does (nothing in the port reads the specs yet).
+reference's does (``parallel.sharding`` resolves them for a mesh).
 
 The norms, RoPE and the loss compute in float32 and cast back to the input
 dtype, as the reference's do.
@@ -16,7 +16,6 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 class ParamBuilder:
@@ -84,9 +83,18 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def silu(x):
+    """``jax.nn.silu`` as XLA computes it: ``x * logistic(x)``, with the
+    logistic expanded to ``1 / (1 + exp(-x))`` and every step rounded to
+    ``x``'s dtype.  In bf16 that is five roundings where ``F.silu`` makes
+    one, and the two often differ by an ulp, which an SSM block amplifies
+    with depth; in float32 both round as the reference's products do."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def swiglu(x, w_gate, w_in, w_out):
     """SwiGLU MLP: silu(x @ w_gate) * (x @ w_in) @ w_out."""
-    return (F.silu(x @ w_gate) * (x @ w_in)) @ w_out
+    return (silu(x @ w_gate) * (x @ w_in)) @ w_out
 
 
 def cross_entropy(logits, labels, ignore: int = -100):

@@ -61,7 +61,7 @@ from . import attention as attn_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (ParamBuilder, cross_entropy, head_rms_norm, rms_norm,
-                     rope, swiglu)
+                     rope, silu, swiglu)
 
 IGNORE = -100
 FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid", "encdec")
@@ -144,7 +144,12 @@ class LM:
         return p
 
     def param_specs(self):
-        """The logical-axes tree of the last :meth:`init`."""
+        """The params' logical-axes tree (built over fake tensors when
+        :meth:`init` has not run, as the reference builds it abstractly)."""
+        if self._specs is None:
+            from torch._subclasses.fake_tensor import FakeTensorMode
+            with FakeTensorMode():
+                self.init(torch.Generator(), device="cpu")
         return self._specs
 
     def _init_stack(self, pb, L, cfg, *, decoder: bool):
@@ -274,8 +279,8 @@ class LM:
             cx, cbc = (None, None) if conv_cache is None else conv_cache
             xin, conv_x = ssm_lib.causal_conv(xin, lp["conv_x_w"], cx)
             bc, conv_b = ssm_lib.causal_conv(bc, lp["conv_bc_w"], cbc)
-            xs = torch.nn.functional.silu(xin)
-            bc = torch.nn.functional.silu(bc)
+            xs = silu(xin)
+            bc = silu(bc)
             Bm, Cm = bc[..., :N], bc[..., N:]
             conv_new = (conv_x, conv_b)
         else:
@@ -285,7 +290,7 @@ class LM:
             dt = proj[..., 2 * di + 2 * N:]
             xbc, conv_new = ssm_lib.causal_conv(xbc, lp["conv_w"],
                                                 conv_cache)
-            xbc = torch.nn.functional.silu(xbc)
+            xbc = silu(xbc)
             xs, Bm, Cm = xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
         return z, xs, Bm, Cm, dt, conv_new
 
@@ -293,7 +298,7 @@ class LM:
         """The skip term, the gated norm and the output projection."""
         y = y + xs * lp["D"].to(y.dtype).reshape(D_shape)
         y = y.reshape(*z.shape)
-        y = rms_norm(y, lp["ssm_norm"]) * torch.nn.functional.silu(z)
+        y = rms_norm(y, lp["ssm_norm"]) * silu(z)
         return y @ lp["ssm_out"]
 
     def _ssm_full(self, lp, u, h0=None, conv_cache=None):

@@ -26,7 +26,8 @@ outside any Pallas kernel.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+
+from .layers import silu
 
 
 def select_top_k(logits, k: int):
@@ -39,7 +40,7 @@ def select_top_k(logits, k: int):
 def _experts(xg, w_gate, w_in, w_out):
     """SwiGLU of every expert over its slots.  xg: (..., E, C, d) ->
     (..., E, C, d)."""
-    h = F.silu(xg @ w_gate) * (xg @ w_in)
+    h = silu(xg @ w_gate) * (xg @ w_in)
     return h @ w_out
 
 

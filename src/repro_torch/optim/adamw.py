@@ -6,8 +6,8 @@ cast back to each parameter's dtype.  Leaves are visited in the
 reference's order (``jax.tree.flatten`` sorts dict keys), so
 :func:`global_norm` sums the leaves' squares in the same order.
 
-``moment_specs`` (the ZeRO-1 sharding of the moments) needs the sharding
-rules, which the port does not have yet.
+``moment_specs`` gives the moments' logical axes for the ZeRO-1 sharding
+the sharding rules (``parallel.sharding``) resolve; the dry run reads it.
 """
 
 from __future__ import annotations
@@ -129,3 +129,32 @@ def _update(upd, p, g, m, v, out_p, out_m, out_v) -> None:
     for out in (out_p, out_m, out_v):     # the params' own key order
         for k in p:
             out[k] = out.pop(k)
+
+
+def moment_specs(param_specs, params_shapes, data_axis_size: int,
+                 rules=None):
+    """ZeRO-1 sharding: add the "moments" logical axis on the largest dim
+    that *resolves* to replicated (given the active rules) and is divisible,
+    so moments shard over data on top of the param's own model sharding.
+    ``params_shapes`` holds tensors (fake ones too) or shapes; leaves are
+    resolved in the reference's order, so ``rules.fallbacks`` grows as
+    its does."""
+    def one(axes, shape):
+        axes = tuple(axes)
+        shape = tuple(getattr(shape, "shape", shape))
+        resolved = (rules.spec(axes, shape) if rules is not None
+                    else tuple(None if a is None else a for a in axes))
+        best, best_size = None, 0
+        for i, (a, s) in enumerate(zip(tuple(resolved), shape)):
+            if a is None and s % data_axis_size == 0 and s > best_size:
+                best, best_size = i, s
+        if best is None:
+            return axes
+        return axes[:best] + ("moments",) + axes[best + 1:]
+
+    def walk(specs, shapes):     # jax.tree.map's order: sorted keys
+        if not isinstance(specs, dict):
+            return one(specs, shapes)
+        done = {k: walk(specs[k], shapes[k]) for k in sorted(specs)}
+        return {k: done[k] for k in specs}
+    return walk(param_specs, params_shapes)

@@ -1,1 +1,2 @@
-"""Multi-device decode: the sharded executor (``decode_shard``)."""
+"""Multi-device decode (``decode_shard``) and the logical-axis sharding
+rules (``sharding``)."""

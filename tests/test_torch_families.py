@@ -22,7 +22,11 @@ Tolerances, stated once:
   * the LM at float32, ``2e-4``: the reference's serving tolerance;
   * bf16 parameters, ``0.05``: every product and elementwise operation
     rounds to bf16 (a relative step of 2^-8) in an order each package
-    chooses, about a dozen such steps at a logit of magnitude 1.
+    chooses, about a dozen such steps at a logit of magnitude 1;
+  * mamba2 at full width and 2 layers in bf16, ``0.0625``: two bf16 steps
+    at its logits' magnitude (4 to 8, a step of 2^-5), with the port's
+    decode-against-forward drift at most twice the reference's
+    (``torch_drift.py``).
 
 Each test runs in a child pytest process (``test_torch_isolation.in_child``)
 and imports the port inside, so the test worker never loads torch.
@@ -377,6 +381,21 @@ def test_bf16_families_against_reference(arch):
     if arch == "mamba2_2_7b":
         assert cache["ssm_h"].dtype == torch.float32
         assert cache["conv"].dtype == torch.bfloat16
+
+
+@in_child
+def test_bf16_mamba2_full_width_rounds_as_the_reference():
+    """mamba2_2_7b at full width, 2 layers, bf16 (``torch_drift.py``'s
+    setup): the port's ``forward`` and decode logits within two bf16 steps
+    of the reference's, and its decode-against-forward drift at most twice
+    the reference's.  With ``F.silu`` (one rounding, where XLA's SiLU
+    rounds each step of ``x * (1 / (1 + exp(-x)))``) the forward was 1.008
+    away; the smoke width does not show it."""
+    from torch_drift import drift_row
+    r = drift_row("mamba2_2_7b", 2)
+    assert r["forward_gap"] <= 0.0625, r
+    assert r["decode_gap"] <= 0.0625, r
+    assert r["port_drift"] <= 2 * r["ref_drift"], r
 
 
 @pytest.mark.parametrize("arch", ["seamless_m4t_medium", "grok1_314b",

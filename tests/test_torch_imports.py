@@ -98,3 +98,25 @@ def test_training_imports_with_jax_blocked():
                          cwd=ROOT)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "ok"
+
+
+def test_sharding_and_dry_run_with_jax_blocked(tmp_path):
+    """The sharding rules, the roofline and the dry run import with jax,
+    the JAX package and ``ml_dtypes`` blocked, and the dry run's CLI costs
+    a cell on the CPU."""
+    code = ("import sys\n"
+            "for m in ('jax', 'repro', 'ml_dtypes'):\n"
+            "    sys.modules[m] = None\n"
+            "import repro_torch.parallel.sharding, repro_torch.launch\n"
+            "import repro_torch.launch.roofline\n"
+            "from repro_torch.launch import dryrun\n"
+            f"dryrun.main(['--arch', 'mamba2_2_7b', '--shape', 'decode_32k',"
+            f" '--mesh', 'card', '--out', {str(tmp_path)!r}])\n")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=False,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "ALL CELLS PASSED" in out.stdout
+    assert os.path.exists(os.path.join(
+        tmp_path, "card", "mamba2_2_7b__decode_32k.json"))
