@@ -40,6 +40,7 @@ import torch
 
 from ..rans import StaticModel
 from ..vectorized import WalkBatch
+from ...spans import span
 from ...kernels.rans_decode.rans_decode import (check_rows_per_block,
                                                 load_library,
                                                 walk_decode_pointer,
@@ -176,8 +177,9 @@ class Executor:
                                  rows_per_block=self.rows_per_block)
 
     def run(self, fn, plan: DecodePlan) -> torch.Tensor:
-        res = fn(*plan.args, n_steps=plan.n_steps, n_symbols=plan.n_symbols,
-                 covered=plan.covered)
+        with span("recoil.walk.launch"):
+            res = fn(*plan.args, n_steps=plan.n_steps,
+                     n_symbols=plan.n_symbols, covered=plan.covered)
         return res if plan.layout == "symbol" else res[0]
 
 

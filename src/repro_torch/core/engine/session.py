@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...spans import span
 from ..rans import StaticModel
 from ..vectorized import WalkBatch
 from .executors import make_executor
@@ -215,27 +216,29 @@ class DecoderSession:
         (outside it) are timed per plan key.  The launch returns once the
         kernel is queued, so a run time is the host-side enqueue cost, as
         the reference's is its dispatch cost; no synchronize is added."""
-        prof = self.profiler
-        with self._lock:
-            self.stats.decodes += 1
-            fn = self._exec.get(plan.key)
-            if fn is None:
-                if prof is None:
-                    fn = self.executor.lower(plan)
+        with span("recoil.execute"):
+            prof = self.profiler
+            with self._lock:
+                self.stats.decodes += 1
+                fn = self._exec.get(plan.key)
+                if fn is None:
+                    if prof is None:
+                        fn = self.executor.lower(plan)
+                    else:
+                        t0 = prof.now()
+                        fn = self.executor.lower(plan)
+                        prof.record_compile("decode", plan.key,
+                                            prof.now() - t0)
+                    self._exec[plan.key] = fn
+                    self.stats.compiles += 1
                 else:
-                    t0 = prof.now()
-                    fn = self.executor.lower(plan)
-                    prof.record_compile("decode", plan.key, prof.now() - t0)
-                self._exec[plan.key] = fn
-                self.stats.compiles += 1
-            else:
-                self.stats.cache_hits += 1
-        if prof is None:
-            return self.executor.run(fn, plan)
-        t0 = prof.now()
-        out = self.executor.run(fn, plan)
-        prof.record_run("decode", plan.key, prof.now() - t0)
-        return out
+                    self.stats.cache_hits += 1
+            if prof is None:
+                return self.executor.run(fn, plan)
+            t0 = prof.now()
+            out = self.executor.run(fn, plan)
+            prof.record_run("decode", plan.key, prof.now() - t0)
+            return out
 
     def decode_batch(self, batch: WalkBatch, stream,
                      n_symbols: int) -> torch.Tensor:

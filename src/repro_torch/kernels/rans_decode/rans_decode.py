@@ -36,6 +36,7 @@ from pathlib import Path
 import torch
 
 from ...core.vectorized import _walk_batch_impl, _walk_batch_symbol_impl
+from ...spans import span
 from ..build import CudaLibrary
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rans_walk.cu"
@@ -193,10 +194,11 @@ def walk_decode_pointer(stream, sym_lut, f_lut, F_lut, k, y, x0, q0, g_hi,
     dev = _check_cuda(named, (sym_lut, f_lut, F_lut), **statics)
     _check_words(stream, dev, "stream")
     S = k.shape[0]
-    out = _output(walk_decode_pointer, n_symbols, covered, dev)
-    if S == 0:
-        return out, q0.clone()
-    qf = torch.empty(S, dtype=torch.int32, device=dev)
+    with span("recoil.walk.alloc"):
+        out = _output(walk_decode_pointer, n_symbols, covered, dev)
+        if S == 0:
+            return out, q0.clone()
+        qf = torch.empty(S, dtype=torch.int32, device=dev)
     lib = load_library()
     err = lib.rans_walk_pointer(
         stream.data_ptr(), stream.numel(), sym_lut.data_ptr(), _ptr(f_lut),
@@ -234,7 +236,8 @@ def walk_decode_symbol(by_symbol, sym_lut, f_lut, F_lut, k, y, x0, sym_base,
     dev = _check_cuda(named, (sym_lut, f_lut, F_lut), **statics)
     _check_words(by_symbol, dev, "by_symbol", ways)
     S = k.shape[0]
-    out = _output(walk_decode_symbol, n_symbols, covered, dev)
+    with span("recoil.walk.alloc"):
+        out = _output(walk_decode_symbol, n_symbols, covered, dev)
     if S == 0:
         return out
     lib = load_library()

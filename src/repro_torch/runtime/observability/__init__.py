@@ -1,7 +1,8 @@
 """Unified observability for the serving stack (the port's fork).
 
 One :class:`Observability` object per :class:`~repro_torch.runtime.serve
-.DecodeService` bundles the three instruments this package provides:
+.DecodeService` bundles three instruments this package provides, and the
+package re-exports a fourth:
 
   * :class:`~repro_torch.runtime.observability.trace.TicketTracer` —
     per-ticket span timelines threaded through submit -> admission ->
@@ -16,7 +17,13 @@ One :class:`Observability` object per :class:`~repro_torch.runtime.serve
     per-class deadline accounting;
   * :class:`~repro_torch.runtime.observability.profiler.ExecProfiler` —
     per-plan-key launcher-resolution/run timing shared by the decode and
-    encode sessions.
+    encode sessions;
+  * :func:`~repro_torch.spans.span` — ``recoil.*`` ranges on the
+    ``torch.profiler`` clock inside the decode path (service, engine,
+    kernel wrapper, allocation), and the collector's pauses as
+    ``recoil.gc`` (its hook installed when the first ``Observability`` is
+    built); free while no profiler records.  ``enabled`` does not govern
+    them: a recording profiler does.
 
 ``trace``, ``registry`` and ``profiler`` are the JAX package's modules,
 copied.  This module is forked: its collectors read the port's service and
@@ -43,13 +50,14 @@ package imports nothing from ``runtime.serve`` or ``runtime.pipeline``
 
 from __future__ import annotations
 
+from ...spans import install_gc_span, span
 from .profiler import ExecProfiler
 from .registry import MetricsRegistry
 from .trace import NULL_TRACE, NullTrace, TicketTracer, Trace
 
 __all__ = [
     "ExecProfiler", "MetricsRegistry", "NULL_TRACE", "NullTrace",
-    "Observability", "SCHEMA", "TicketTracer", "Trace", "waterfall",
+    "Observability", "SCHEMA", "TicketTracer", "Trace", "span", "waterfall",
 ]
 
 
@@ -160,6 +168,7 @@ class Observability:
     """
 
     def __init__(self, enabled: bool = True, trace_capacity: int = 1024):
+        install_gc_span()
         self.enabled = bool(enabled)
         self.tracer = TicketTracer(capacity=trace_capacity, enabled=enabled)
         self.registry = MetricsRegistry()

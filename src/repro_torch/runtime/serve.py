@@ -68,6 +68,7 @@ from ..core.engine import (ChunkSpec, DecodePlan, DecoderSession,
 from ..core.rans import StaticModel
 from ..core.recoil import RecoilPlan, build_split_states, combine_plan
 from ..core.vectorized import WalkBatch
+from ..spans import span
 from .faultinject import NULL_INJECTOR
 from .observability import NULL_TRACE, Observability
 
@@ -579,7 +580,9 @@ class DecodeService:
     def decode(self, name: str, n_threads: int) -> torch.Tensor:
         """Decode registered content at the client's parallelism; returns a
         device int32 symbol tensor (no host round-trip)."""
-        return self.session.execute(self.prepare_request(name, n_threads))
+        with span("recoil.decode"):
+            return self.session.execute(
+                self.prepare_request(name, n_threads))
 
     # ------------------------------------------------------------------
     # Chunked streaming path

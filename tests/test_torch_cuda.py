@@ -328,6 +328,47 @@ def test_session_defaults_to_the_kernels(cuda_device):
 
 
 @in_child
+def test_decode_spans_nest_to_the_allocation_on_the_card(cuda_device):
+    """Under a CPU and CUDA profiler a card decode opens ``recoil.decode``
+    > ``recoil.execute`` > ``recoil.walk.launch`` > ``recoil.walk.alloc``
+    on one thread; a range leaves no event on the device's timeline, and
+    the walk kernel is not a ``recoil.`` name."""
+    import torch
+    from repro_torch.core import recoil
+    from repro_torch.runtime.serve import DecodeService
+    syms, model, enc, _ = _content(9, 30_000, 32, 11, 64)
+    svc = DecodeService(model, device=cuda_device)
+    svc.register("a", recoil.plan_splits(enc, 64), enc.stream,
+                 enc.final_states)
+    plain = svc.decode("a", 16).cpu()
+    assert (plain.numpy() == syms).all()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = svc.decode("a", 16)
+        torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), plain)
+    host, shadows, kernels = [], [], []
+    for ev in prof.events():
+        on_card = str(ev.device_type).endswith("CUDA")
+        if ev.name.startswith("recoil.") and not on_card:
+            host.append((ev.time_range.start, ev.time_range.end, ev.name,
+                         ev.thread))
+        elif ev.name.startswith("recoil."):
+            shadows.append(ev)
+        elif on_card:
+            kernels.append(ev.name)
+    host = sorted(r for r in host if r[2] != "recoil.gc")
+    assert [r[2] for r in host] == ["recoil.decode", "recoil.execute",
+                                    "recoil.walk.launch", "recoil.walk.alloc"]
+    assert len({r[3] for r in host}) == 1
+    for outer, inner in zip(host, host[1:]):
+        assert outer[0] <= inner[0] and inner[1] <= outer[1]
+    assert not shadows
+    assert any("walk_" in k for k in kernels)
+
+
+@in_child
 def test_plans_of_one_key_decode_their_own_sizes(cuda_device):
     """Two requests that share a plan key (one launcher) but differ in
     n_symbols: each output has its own length and equals its symbols."""
