@@ -28,10 +28,19 @@ plan of its key shares (``n_bits``, ``ways``, ``rows_per_block``); ``run``
 passes what differs between plans of one key -- the real walk depth, the
 real output length and whether the kept windows tile the output -- at run
 time, so a walk runs the steps its splits need and not its key's bucket.
+
+``cuda`` runs a walk that an earlier walk still overlaps on one stream of a
+small pool it owns (:data:`WALK_STREAMS`, round-robin), so that independent
+requests issued one after another run side by side; the caller's stream
+waits for each such walk before ``execute`` returns
+(``DecoderSession.execute`` gives the contract).  Every other walk, and
+every walk of ``torch`` and ``sharded``, runs on the caller's stream
+(``next_lane`` None, ``run_on`` is ``run``).
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 import threading
 
@@ -48,6 +57,12 @@ from ...kernels.rans_decode.rans_decode import (check_rows_per_block,
 from .plan import (BucketPolicy, DecodePlan, DeviceStream, LEGACY_POLICY,
                    SPLIT_FIELDS, SYMBOL_SPLIT_FIELDS, kept_windows_tile,
                    pad_split_arrays, pow2_bucket)
+
+#: Streams a ``cuda`` executor's overlapping walks run on, beside the
+#: caller's: four 32-block walks (128 splits, four a block) fit the H100's
+#: 132 SMs.  At most 7, so that the pool and the caller's stream fit the
+#: card's 8 hardware queues.
+WALK_STREAMS = 4
 
 
 class Executor:
@@ -78,6 +93,7 @@ class Executor:
 
     impl: str = "?"
     device_type: str = "?"
+    streams: tuple = ()      # the walk pool; empty: the caller's stream
 
     def __init__(self, model: StaticModel, packed_lut: bool, luts: tuple,
                  device: torch.device, layout: str = "auto",
@@ -166,7 +182,23 @@ class Executor:
                           n_symbols=n_symbols, out_bucket=out_b,
                           layout=layout,
                           covered=kept_windows_tile(batch, n_symbols),
-                          n_steps=batch.n_steps)
+                          n_steps=batch.n_steps, ready=self.inputs_ready())
+
+    def inputs_ready(self):
+        """The event a plan's walk waits for before it reads the plan's
+        device inputs; None where the walk runs on the stream that wrote
+        them."""
+        return None
+
+    def next_lane(self):
+        """The pool stream (an index into ``streams``) the next walk runs
+        on, or None: the caller's stream.  The session calls it under its
+        lock."""
+        return None
+
+    def run_on(self, fn, plan: DecodePlan, lane) -> torch.Tensor:
+        """``run`` on the stream ``next_lane`` picked."""
+        return self.run(fn, plan)
 
     def lower(self, plan: DecodePlan):
         """The launcher for this plan's key: the layout's wrapper bound to
@@ -204,14 +236,111 @@ class TorchExecutor(Executor):
 
 
 class CudaExecutor(Executor):
-    """The hand-written Hopper kernels on a CUDA device."""
+    """The hand-written Hopper kernels on a CUDA device; walks that overlap
+    an earlier one run on the executor's stream pool (module docstring)."""
 
     impl = "cuda"
     device_type = "cuda"
 
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self._index = (self.device.index if self.device.index is not None
+                       else torch.cuda.current_device())
+        self.streams = tuple(torch.cuda.Stream(self.device)
+                             for _ in range(WALK_STREAMS))
+        self._ends = tuple(torch.cuda.Event() for _ in self.streams)
+        self._caller_end = torch.cuda.Event()
+        self._start = torch.cuda.Event()   # the caller's queue at a burst
+        self._turn = 0
+        self._last_end = None    # the end event of the last walk
+        # Pool outputs the allocator may not reuse yet: (storage, the
+        # caller's stream, None or an event recorded there once the caller
+        # let go of the output).
+        self._held = collections.deque()
+
+    def inputs_ready(self):
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self._index))
+        return ev
+
+    def next_lane(self):
+        self._release()
+        last = self._last_end
+        if last is None or last.query():
+            return None
+        lane = self._turn % len(self.streams)
+        self._turn += 1
+        return lane
+
+    def _release(self):
+        """Hand back to the allocator the pool outputs that the caller has
+        let go of, once the caller's stream has passed them.
+
+        An output allocated on a pool stream returns to that stream's
+        blocks when it is freed, and a later walk there could overwrite it
+        before the caller's stream has run the reads queued on it.  This
+        is the wait that ``record_stream`` would add at the free, done here
+        instead: a CUDA error then raises to the caller of ``execute``, not
+        inside a tensor's destructor, where it aborts the process.  At most
+        ``2 * WALK_STREAMS`` entries are looked at a call, so that outputs
+        the caller keeps cost no more than that."""
+        held = self._held
+        for _ in range(min(len(held), 2 * len(self.streams))):
+            storage, stream, ev = held.popleft()
+            if ev is None:
+                if torch._C._storage_Use_Count(storage._cdata) > 1:
+                    held.append((storage, stream, None))   # still the caller's
+                    continue
+                ev = torch.cuda.Event()
+                ev.record(stream)
+            if not ev.query():
+                held.append((storage, stream, ev))
+
     def lower(self, plan: DecodePlan):
         load_library()   # build + bind once, on the first plan key
         return super().lower(plan)
+
+    def run_on(self, fn, plan: DecodePlan, lane) -> torch.Tensor:
+        """``run`` on the caller's stream (``lane`` None: no walk of the
+        session was running), or on pool stream ``lane``.
+
+        On the caller's stream the walk waits for what the caller queued,
+        as one launch always did, and an event recorded just before it
+        marks where the caller's queue stood when the burst began.  On a
+        pool stream the walk waits for the plan's inputs and for that
+        event, and the caller's stream then waits for the walk: so no walk
+        runs ahead of what its caller queued before the burst, and while a
+        burst lasts no walk waits on the earlier walks' joins.  The output
+        and ``qf`` are allocated on the pool stream; the output is held
+        until the caller's stream has passed it (:meth:`_release`).  Each
+        stream re-records one end event: a later record is on the same
+        stream, so a wait that sees it still covers this walk.  The stream
+        is switched by ``set_stream`` (a context manager costs several
+        times as much), which also selects the stream's device, so the
+        caller's device is selected again after it."""
+        caller = torch.cuda.current_stream(self._index)
+        if lane is None:
+            caller.wait_event(plan.ready)
+            self._start.record(caller)
+            out = self.run(fn, plan)
+            self._caller_end.record(caller)
+            self._last_end = self._caller_end
+            return out
+        stream, end = self.streams[lane], self._ends[lane]
+        stream.wait_event(plan.ready)
+        stream.wait_event(self._start)
+        device = torch.cuda.current_device()
+        torch.cuda.set_stream(stream)
+        try:
+            out = self.run(fn, plan)
+        finally:
+            torch.cuda.set_stream(caller)
+            torch.cuda.set_device(device)
+        end.record(stream)
+        caller.wait_event(end)
+        self._held.append((out.untyped_storage(), caller, None))
+        self._last_end = end
+        return out
 
 
 def make_executor(impl: str, model: StaticModel, packed_lut: bool,

@@ -18,7 +18,10 @@ A :class:`DecodePlan` captures everything the launch needs:
   * ``n_steps``, ``n_symbols``, ``covered`` — the request's real walk
                    depth, output length and whether the kept windows tile
                    the output; the executor passes them at run time, since
-                   plans of one key share one launcher.
+                   plans of one key share one launcher;
+  * ``ready``    — on the card, an event recorded on the stream that wrote
+                   ``args`` right after it wrote them (None elsewhere): a
+                   walk on another stream waits for it.
 
 Bucketing policy: a pluggable :class:`BucketPolicy` pads memory-dominant
 dims through ``policy.mem`` and compute-dominant dims through
@@ -220,6 +223,7 @@ class DecodePlan:
     layout: str = "pointer"   # "pointer" or "symbol"; joins the key
     covered: bool = False     # kept windows tile [0, n_symbols)
     n_steps: int = 0          # the request's real walk depth
+    ready: object = dataclasses.field(default=None, compare=False)
 
 
 SPLIT_FIELDS = ("k", "y", "x0", "q0", "g_hi", "start", "stop",

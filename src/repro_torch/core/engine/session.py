@@ -18,6 +18,8 @@ host-side preparation entirely.
 Thread model: the cache and stats are guarded by ``_lock`` — a cache miss
 resolves under the lock (a racing thread waits instead of resolving twice,
 keeping ``stats.compiles`` exact), while the launch itself runs outside it.
+On the card the stream a walk runs on is picked under the lock too (see
+:meth:`DecoderSession.execute`).
 Executor ``plan()`` needs no *session* lock; its only shared state is the
 layout counter, guarded by its own lock.
 """
@@ -48,6 +50,7 @@ class EngineStats:
     compiles: int = 0      # plan-key misses: launchers resolved
     cache_hits: int = 0    # decodes served by an already-resolved key
     decodes: int = 0
+    overlapped_launches: int = 0  # walks run on the card's stream pool
 
     def snapshot(self) -> dict:
         return dataclasses.asdict(self)
@@ -211,6 +214,27 @@ class DecoderSession:
         """Run a prepared plan: resolve its launcher on a key miss, else
         reuse it; the launch runs outside the lock.
 
+        On the card every walk waits for its plan's ``ready`` event,
+        recorded where the plan's inputs were written.  When no earlier
+        walk of the session is still running (one query of the last one's
+        end event, under the lock) the walk runs on the caller's current
+        stream, so it waits for what the caller queued, as a device sleep
+        before a timed call, and an event marks where the caller's queue
+        stood.  While an earlier walk runs, the walk runs on the next
+        stream of the executor's pool (round-robin, picked under the lock)
+        and waits for its plan and for that event: no walk runs ahead of
+        what its caller queued before the first walk of the burst, but it
+        does not wait on the caller's stream itself, which then holds the
+        earlier walks' joins, and waiting on it would run the walks one
+        after another again.  The walk's inputs are engine-owned and
+        immutable once planned, and each walk writes a fresh output, so
+        the results cannot differ from walks run one at a time.  Before
+        this returns the caller's stream waits for the walk, so an event
+        recorded on it after the call, or a synchronize of it, covers the
+        output; the engine keeps a pool walk's output from the allocator
+        until the caller has let go of it and its stream has passed it.
+        ``stats.overlapped_launches`` counts the walks run on the pool.
+
         With a profiler injected, the launcher resolution (under the lock,
         recorded as the key's compile once per key miss) and the launch
         (outside it) are timed per plan key.  The launch returns once the
@@ -233,10 +257,12 @@ class DecoderSession:
                     self.stats.compiles += 1
                 else:
                     self.stats.cache_hits += 1
+                lane = self.executor.next_lane()
+                self.stats.overlapped_launches += lane is not None
             if prof is None:
-                return self.executor.run(fn, plan)
+                return self.executor.run_on(fn, plan, lane)
             t0 = prof.now()
-            out = self.executor.run(fn, plan)
+            out = self.executor.run_on(fn, plan, lane)
             prof.record_run("decode", plan.key, prof.now() - t0)
             return out
 

@@ -174,6 +174,7 @@ class ServiceStats:
     stream_requests: int = 0   # chunked streaming decodes (submit_stream)
     symbol_plans: int = 0      # requests planned on the symbol-indexed layout
     pointer_plans: int = 0     # requests planned on the pointer-walk fallback
+    overlapped_launches: int = 0  # EngineStats': walks run on the pool
 
     def snapshot(self) -> dict:
         return dataclasses.asdict(self)
@@ -988,7 +989,8 @@ class DecodeService:
                 fused_dispatches=self._fused, flushes=self._flushes,
                 ingests=self._ingests, extends=self._extends,
                 stream_requests=self._streams,
-                symbol_plans=plans["symbol"], pointer_plans=plans["pointer"])
+                symbol_plans=plans["symbol"], pointer_plans=plans["pointer"],
+                overlapped_launches=e.overlapped_launches)
 
 
 def _validate_content(model: StaticModel, plan: RecoilPlan, stream,

@@ -150,9 +150,18 @@ def test_engine_stats_match_reference():
         np.testing.assert_array_equal(
             ts.decode(_port_plan(plan), enc.stream, enc.final_states).numpy(),
             np.asarray(js.decode(plan, enc.stream, enc.final_states)))
-    assert ts.stats.snapshot() == js.stats.snapshot()
+    _stats_equal(ts, js)
     assert (ts.stats.compiles, ts.stats.cache_hits) == (1, 1)
     assert ts.executables == 1
+
+
+def _stats_equal(ts, js):
+    """The port's engine counters equal the reference's; the one it adds,
+    which counts walks on the card's stream pool, reads 0 on the CPU."""
+    t, j = ts.stats.snapshot(), js.stats.snapshot()
+    assert {k: t[k] for k in j} == j
+    assert set(t) - set(j) == {"overlapped_launches"}
+    assert t["overlapped_launches"] == 0
 
 
 @in_child
@@ -316,8 +325,51 @@ def test_plans_of_one_key_decode_their_own_sizes():
         plans.append(plan)
     assert plans[0].key == plans[1].key
     assert plans[0].statics == plans[1].statics
-    assert ts.stats.snapshot() == js.stats.snapshot()
+    _stats_equal(ts, js)
     assert (ts.stats.compiles, ts.stats.cache_hits) == (1, 1)
+
+
+@pytest.mark.parametrize("path", ["execute", "decode", "decode_chunks",
+                                  "group"])
+@in_child
+def test_cpu_path_makes_no_stream_and_records_no_event(path, monkeypatch):
+    """The stream pool is the card's alone: on the CPU no path through the
+    engine makes a stream or records an event, a plan carries no readiness
+    event, and both stats objects count no walk on the pool."""
+    import torch
+    from repro_torch.runtime.serve import DecodeService
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA stream or event on the CPU path")
+
+    monkeypatch.setattr(torch.cuda, "Stream", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    rng = np.random.default_rng(31)
+    syms = {nm: np.minimum(rng.exponential(40.0, size=n).astype(np.int64),
+                           255) for nm, n in (("a", 6_000), ("b", 4_500))}
+    svc = DecodeService(_port_model(_model(32)), device="cpu")
+    for nm, s in syms.items():
+        svc.ingest(nm, s, 16)
+    if path == "execute":
+        plan = svc.prepare_request("a", 8)
+        assert plan.ready is None
+        outs = [(svc.session.execute(plan), syms["a"])]
+    elif path == "decode":
+        outs = [(svc.decode(nm, t), syms[nm]) for nm in syms for t in (4, 16)]
+    elif path == "decode_chunks":
+        outs = [(torch.cat(svc.decode_chunks("a", 16, 3)), syms["a"])]
+    else:
+        tickets = [(svc.submit(nm, 8), syms[nm]) for nm in syms]
+        svc.flush()
+        outs = [(t.result(), want) for t, want in tickets]
+        assert svc.stats.fused_dispatches == 1
+    for out, want in outs:
+        np.testing.assert_array_equal(out.numpy(), want)
+    assert svc.session.executor.streams == ()
+    engine, service = svc.session.stats.snapshot(), svc.stats.snapshot()
+    assert engine["decodes"] == service["decodes"] > 0
+    for snap in (engine, service):
+        assert snap["overlapped_launches"] == 0
 
 
 @pytest.mark.parametrize("layout", ["pointer", "symbol"])
